@@ -1,0 +1,434 @@
+"""Interleaved rANS "lane coder": G x 128 parallel rANS32 lanes whose
+decoder runs on the GPU (kernel B2, `csrc/lane_decode.cu`).
+
+Port of `stf_tpu/ans/lane_coder.py`: the same stream format (G = 8 row
+groups x K = 128 lanes, 16-bit renormalisation, escapes to a per-group
+int32 side channel, the same packed framing), so streams cross between
+the two packages byte for byte. The host half (tables, native encoder,
+NumPy reference decoder, framing, bank packing) is a copy of the JAX
+module's; the device decoder is a hand-written CUDA kernel in place of the
+Pallas one. Its plain PyTorch version, `lane_decode_plain`, runs the same
+arithmetic row by row and is what `lane_decode` uses for CPU tensors.
+"""
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import _native
+
+K = 128          # lanes per group
+GROUPS = 8       # independent row groups (part of the stream format)
+RANS_L = 1 << 16  # renormalization lower bound = 2^precision
+PRECISION = 16
+SENTINEL = 1 << 20  # table padding: never <= a 16-bit slot
+
+
+class LaneTables(NamedTuple):
+    """CDF tables with rows padded by SENTINEL to equal width."""
+
+    cdf: np.ndarray      # (R, W) int32, row r valid through lengths[r]
+    lengths: np.ndarray  # (R,) int32 (== pmf_len + 2, escape slot included)
+    offsets: np.ndarray  # (R,) int32
+
+
+class LaneStream(NamedTuple):
+    """One encoded segment: per-group word/side streams + lane states."""
+
+    words: np.ndarray        # uint16, groups concatenated
+    word_counts: np.ndarray  # (G,) int64
+    states: np.ndarray       # (G, K) uint32 decoder init states
+    side: np.ndarray         # int32 escape values, groups concatenated
+    side_counts: np.ndarray  # (G,) int64
+    n: int                   # real symbol count
+
+
+def make_lane_tables(cdf, cdf_lengths, offsets) -> LaneTables:
+    cdf = np.asarray(cdf, np.int64)
+    lengths = np.asarray(cdf_lengths, np.int32).reshape(-1)
+    offsets = np.asarray(offsets, np.int32).reshape(-1)
+    out = np.full(cdf.shape, SENTINEL, np.int32)
+    for r in range(cdf.shape[0]):
+        out[r, : lengths[r]] = cdf[r, : lengths[r]]
+    return LaneTables(out, lengths, offsets)
+
+
+def truncate_tables(cdf, cdf_lengths, offsets, max_half: int = 127) -> LaneTables:
+    """Lane tables with every row's symbol window clamped to ±max_half
+    around its center; clipped tail mass is folded into the escape slot,
+    and symbols beyond the window ride the raw side channel. The codec
+    uses max_half=62 (W = 127 columns), as the JAX codec does."""
+    cdf = np.asarray(cdf, np.int64)
+    lengths = np.asarray(cdf_lengths, np.int32).reshape(-1)
+    offsets = np.asarray(offsets, np.int32).reshape(-1)
+    wmax = 2 * max_half + 1 + 2
+    R = cdf.shape[0]
+    out_cdf = np.zeros((R, min(cdf.shape[1], wmax)), np.int64)
+    out_len = np.empty(R, np.int32)
+    out_off = np.empty(R, np.int32)
+    for r in range(R):
+        L = int(lengths[r])  # cdf entries; pmf_len = L - 2 symbols + escape
+        pmf_len = L - 2
+        freqs = np.diff(cdf[r, :L])  # pmf_len + 1 freqs (escape last)
+        center = -int(offsets[r])
+        if pmf_len <= 2 * max_half + 1:
+            out_cdf[r, :L] = cdf[r, :L]
+            out_len[r] = L
+            out_off[r] = offsets[r]
+            continue
+        # wide row: keep a (2*max_half+1)-slot window around its center,
+        # clipped into the row
+        lo = min(max(center - max_half, 0), pmf_len - (2 * max_half + 1))
+        hi = lo + 2 * max_half + 1
+        kept = freqs[lo:hi]
+        esc = freqs[pmf_len] + freqs[:lo].sum() + freqs[hi:pmf_len].sum()
+        new = np.concatenate([[0], np.cumsum(np.concatenate([kept, [esc]]))])
+        out_cdf[r, : new.size] = new
+        out_len[r] = new.size
+        out_off[r] = offsets[r] + lo
+    return make_lane_tables(out_cdf, out_len, out_off)
+
+
+def _pad_to_rows(symbols, indexes, tables: LaneTables):
+    """Pad (symbols, indexes) to G*Tg full K-rows. Padding symbols encode
+    as row 0 with value offsets[0] (slot 0, always in range); the decoder
+    pads indexes with the same zeros, so padded tails round-trip and are
+    sliced off."""
+    n = symbols.size
+    tg = rows_per_group(n)
+    total = GROUPS * tg * K
+    symbols = np.concatenate(
+        [symbols, np.full(total - n, tables.offsets[0], np.int32)]
+    )
+    indexes = np.concatenate([indexes, np.zeros(total - n, np.int32)])
+    return symbols, indexes, tg
+
+
+def rows_per_group(n: int) -> int:
+    """tg: K-rows each group decodes for an n-symbol segment."""
+    return ((n + K - 1) // K + GROUPS - 1) // GROUPS
+
+
+def lane_encode(symbols, indexes, tables: LaneTables) -> LaneStream:
+    """Host encoder (native, `csrc/rans_coder.cpp` stf_lane_encode): split
+    into G row groups and encode each independently."""
+    from ._binding import lane_encode_groups
+
+    symbols = np.asarray(symbols, np.int32).reshape(-1)
+    indexes = np.asarray(indexes, np.int32).reshape(-1)
+    n = symbols.size
+    symbols, indexes, tg = _pad_to_rows(symbols, indexes, tables)
+    words, word_counts, states, side, side_counts = lane_encode_groups(
+        symbols, indexes, tg, GROUPS, K,
+        tables.cdf, tables.lengths, tables.offsets,
+    )
+    return LaneStream(words, word_counts, states, side, side_counts, n)
+
+
+def _decode_group_reference(words, init_states, side, indexes, tables, T):
+    """Pure-NumPy forward decoder for one group (the format's oracle)."""
+    idx2 = np.asarray(indexes, np.int64).reshape(T, K)
+    words = np.asarray(words, np.uint64)
+    state = np.asarray(init_states, np.uint64).copy()
+    out = np.empty((T, K), np.int32)
+    base = 0
+    sbase = 0
+    for t in range(T):
+        idx = idx2[t]
+        row = tables.cdf[idx].astype(np.int64)  # (K, W)
+        lens = tables.lengths[idx].astype(np.int64)
+        slot = (state & 0xFFFF).astype(np.int64)
+        le = row <= slot[:, None]
+        s = le[:, 1:].sum(1)  # count of cdf[j] <= slot for j >= 1
+        cum = np.max(np.where(le, row, -1), axis=1)
+        nxt = np.min(np.where(le, SENTINEL, row), axis=1)
+        nxt = np.minimum(nxt, RANS_L)
+        freq = (nxt - cum).astype(np.uint64)
+        state = freq * (state >> PRECISION) + (slot - cum).astype(np.uint64)
+        m = state < RANS_L
+        nren = int(m.sum())
+        w = np.zeros(K, np.uint64)
+        w[m] = words[base : base + nren]
+        state = np.where(m, (state << PRECISION) | w, state)
+        base += nren
+        esc = s == lens - 2
+        vals = (s + tables.offsets[idx]).astype(np.int32)
+        nesc = int(esc.sum())
+        if nesc:
+            vals[esc] = side[sbase : sbase + nesc]
+            sbase += nesc
+        out[t] = vals
+    return out.reshape(-1)
+
+
+def lane_decode_reference(
+    stream: LaneStream, indexes, tables: LaneTables
+) -> np.ndarray:
+    """Pure-NumPy decode of one segment."""
+    indexes = np.asarray(indexes, np.int32).reshape(-1)
+    _, indexes, tg = _pad_to_rows(
+        np.zeros(stream.n, np.int32), indexes, tables
+    )
+    wb = np.concatenate([[0], np.cumsum(stream.word_counts)])
+    sb = np.concatenate([[0], np.cumsum(stream.side_counts)])
+    out = []
+    gsz = tg * K
+    for g in range(GROUPS):
+        out.append(
+            _decode_group_reference(
+                stream.words[wb[g] : wb[g + 1]],
+                stream.states[g],
+                stream.side[sb[g] : sb[g + 1]],
+                indexes[g * gsz : (g + 1) * gsz],
+                tables,
+                tg,
+            )
+        )
+    return np.concatenate(out)[: stream.n]
+
+
+# -- stream framing -----------------------------------------------------------
+
+# Format word leading every packed stream: magic byte, layout version, and
+# the two constants the layout depends on (GROUPS, K).
+_STREAM_MAGIC = 0x5A
+_STREAM_VERSION = 1
+
+
+def _format_word() -> int:
+    return (
+        (_STREAM_MAGIC << 24)
+        | (_STREAM_VERSION << 16)
+        | (GROUPS << 8)
+        | (K & 0xFF)
+    )
+
+
+def pack_lane_stream(segments) -> bytes:
+    """Serialize a list of LaneStream segments into one byte string.
+
+    Layout (little-endian): u32 format word; u32 segment count; per
+    segment u32 n_symbols, G u32 word counts, G u32 side counts; then per
+    segment, in order: G*K u32 init states, words u16 (padded to 4-byte
+    alignment), side i32.
+    """
+    head = [np.asarray([_format_word(), len(segments)], "<u4").tobytes()]
+    body = []
+    for seg in segments:
+        head.append(np.asarray([seg.n], "<u4").tobytes())
+        head.append(np.asarray(seg.word_counts, "<u4").tobytes())
+        head.append(np.asarray(seg.side_counts, "<u4").tobytes())
+        chunk = (
+            np.asarray(seg.states, "<u4").tobytes()
+            + np.asarray(seg.words, "<u2").tobytes()
+        )
+        if len(chunk) % 4:
+            chunk += b"\x00\x00"
+        body.append(chunk + np.asarray(seg.side, "<i4").tobytes())
+    return b"".join(head + body)
+
+
+def unpack_lane_stream(buf: bytes):
+    """Inverse of pack_lane_stream: a list of LaneStream segments. Checks
+    the format word and every section's extent, so truncation or a layout
+    mismatch raises ValueError."""
+    buf = memoryview(buf)
+
+    def take(pos: int, nbytes: int, what: str):
+        if pos + nbytes > len(buf):
+            raise ValueError(
+                f"truncated lane stream: {what} needs {nbytes} bytes at "
+                f"offset {pos}, have {len(buf) - pos}"
+            )
+        return buf[pos : pos + nbytes], pos + nbytes
+
+    head, pos = take(0, 8, "header")
+    fmt, count = (int(v) for v in np.frombuffer(head, "<u4"))
+    if fmt != _format_word():
+        raise ValueError(
+            f"lane stream format word 0x{fmt:08x} does not match this "
+            f"build's 0x{_format_word():08x} (magic/version/GROUPS/K)"
+        )
+    meta_w = 1 + 2 * GROUPS
+    raw, pos = take(pos, 4 * meta_w * count, "segment metadata")
+    meta = np.frombuffer(raw, "<u4").reshape(count, meta_w)
+    segments = []
+    for row in meta:
+        n = int(row[0])
+        wc = row[1 : 1 + GROUPS].astype(np.int64)
+        sc = row[1 + GROUPS :].astype(np.int64)
+        nw, ns = int(wc.sum()), int(sc.sum())
+        raw, pos = take(pos, 4 * GROUPS * K, "init states")
+        states = np.frombuffer(raw, "<u4").reshape(GROUPS, K)
+        raw, pos = take(pos, 2 * nw, "word stream")
+        words = np.frombuffer(raw, "<u2")
+        _, pos = take(pos, (2 * nw) % 4, "alignment padding")
+        raw, pos = take(pos, 4 * ns, "side channel")
+        side = np.frombuffer(raw, "<i4")
+        segments.append(LaneStream(words, wc, states, side, sc, n))
+    if pos != len(buf):
+        raise ValueError(
+            f"lane stream has {len(buf) - pos} trailing bytes after the "
+            "last segment"
+        )
+    return segments
+
+
+# -- decoder banks --------------------------------------------------------------
+
+
+def pack_word_banks(stream: LaneStream, rows: int) -> np.ndarray:
+    """Per-group uint16 word streams -> (G*rows, K) int32 banks, two words
+    per element (little-endian halves), zero-padded. `rows` must cover
+    every group: words_rows_for(max(word_counts))."""
+    out = np.zeros((GROUPS, rows * K * 2), np.uint16)
+    wb = np.concatenate([[0], np.cumsum(stream.word_counts)])
+    for g in range(GROUPS):
+        w = stream.words[wb[g] : wb[g + 1]]
+        out[g, : w.size] = w
+    return out.reshape(-1).view("<i4").reshape(GROUPS * rows, K).copy()
+
+
+def pad_side_banks(stream: LaneStream, rows: int) -> np.ndarray:
+    """Per-group int32 side channels -> (G*rows, K) int32 banks."""
+    out = np.zeros((GROUPS, rows * K), np.int32)
+    sb = np.concatenate([[0], np.cumsum(stream.side_counts)])
+    for g in range(GROUPS):
+        s = stream.side[sb[g] : sb[g + 1]]
+        out[g, : s.size] = s
+    return out.reshape(GROUPS * rows, K)
+
+
+def words_rows_for(n_words: int) -> int:
+    return (int(n_words) + 2 * K - 1) // (2 * K) + 2
+
+
+def side_rows_for(n_side: int) -> int:
+    return (int(n_side) + K - 1) // K + 2
+
+
+def states_tensor(stream: LaneStream, device) -> torch.Tensor:
+    """(G, K) uint32 init states as the bit-identical int32 tensor the
+    decoder takes (torch has no general uint32 arithmetic)."""
+    st = np.ascontiguousarray(stream.states, "<u4").view(np.int32)
+    return torch.from_numpy(st.copy()).to(device)
+
+
+def table_tensors(tables: LaneTables, device):
+    """(cdf, lengths, offsets) int32 tensors on `device`."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+        for a in (tables.cdf, tables.lengths, tables.offsets)
+    )
+
+
+# -- device decoder (kernel B2) ---------------------------------------------------
+
+
+def lane_decode_plain(idx, words, side, states, cdf, lengths, offsets, n: int):
+    """Plain PyTorch version of kernel B2, with the kernel's signature and
+    arithmetic: all G*K lanes advance one row per step; in-row ranks are
+    exclusive cumulative sums of the renorm / escape masks. Reads past a
+    bank's end give 0, as in the kernel."""
+    dev = idx.device
+    tg = rows_per_group(n)
+    G = states.shape[0]
+    wcap = words.numel() // G  # int32 word pairs per group
+    scap = side.numel() // G   # side values per group
+    idx_p = torch.zeros(G * tg * K, dtype=torch.int64, device=dev)
+    idx_p[:n] = idx.reshape(-1).to(torch.int64)
+    idx_p = idx_p.reshape(G, tg, K).clamp_(0, cdf.shape[0] - 1)
+    pairs = words.reshape(G, wcap).to(torch.int64) & 0xFFFFFFFF
+    w16 = torch.stack([pairs & 0xFFFF, pairs >> 16], -1).reshape(G, -1)
+    w16 = torch.cat([w16, torch.zeros(G, 1, dtype=torch.int64, device=dev)], 1)
+    sbank = side.reshape(G, scap).to(torch.int64)
+    sbank = torch.cat([sbank, torch.zeros(G, 1, dtype=torch.int64, device=dev)], 1)
+    cdf64 = cdf.to(torch.int64)
+    lens = lengths.to(torch.int64)
+    offs = offsets.to(torch.int64)
+    state = states.reshape(G, K).to(torch.int64) & 0xFFFFFFFF
+    wpos = torch.zeros(G, 1, dtype=torch.int64, device=dev)
+    spos = torch.zeros(G, 1, dtype=torch.int64, device=dev)
+    out = torch.empty(G, tg, K, dtype=torch.int64, device=dev)
+    for t in range(tg):
+        r = idx_p[:, t]                                  # (G, K)
+        row = cdf64[r]                                   # (G, K, W)
+        slot = state & 0xFFFF
+        le = row <= slot[..., None]
+        j = le[..., 1:].sum(-1)                          # largest cdf[j] <= slot
+        cum = row.gather(-1, j[..., None])[..., 0]
+        nxt = row.gather(-1, (j + 1)[..., None])[..., 0].clamp(max=RANS_L)
+        state = (nxt - cum) * (state >> PRECISION) + slot - cum
+        m = state < RANS_L
+        wr = wpos + torch.cumsum(m, 1) - m.to(torch.int64)
+        wr = wr.clamp(max=w16.shape[1] - 1)
+        word = w16.gather(1, wr)
+        state = torch.where(m, (state << PRECISION) | word, state)
+        wpos = wpos + m.sum(1, keepdim=True)
+        esc = j == lens[r] - 2
+        sr = spos + torch.cumsum(esc, 1) - esc.to(torch.int64)
+        sr = sr.clamp(max=sbank.shape[1] - 1)
+        out[:, t] = torch.where(esc, sbank.gather(1, sr), j + offs[r])
+        spos = spos + esc.sum(1, keepdim=True)
+    return out.reshape(-1)[:n].to(torch.int32)
+
+
+def lane_decode(idx, words, side, states, cdf, lengths, offsets, n: int):
+    """Decode one segment's n symbols -> (n,) int32.
+
+    idx: (n,) int32 CDF-row indexes in stream order (NHWC C-order of the
+    slice); words: (G*rows, K) int32 banks (`pack_word_banks`); side:
+    (G*rows_s, K) int32 (`pad_side_banks`); states: (G, K) int32 holding
+    the u32 init states (`states_tensor`); cdf/lengths/offsets: int32
+    `table_tensors`. On CUDA tensors this launches kernel B2; on CPU
+    tensors it runs `lane_decode_plain`."""
+    if idx.device.type == "cpu":
+        return lane_decode_plain(
+            idx, words, side, states, cdf, lengths, offsets, n
+        )
+    if idx.device.type != "cuda":
+        raise ValueError(f"lane_decode runs on cuda or cpu, not {idx.device}")
+    dev = idx.device
+    R, W = cdf.shape
+    for name, t, shape in (
+        ("idx", idx, (n,)), ("words", words, (None, K)),
+        ("side", side, (None, K)), ("states", states, (None, K)),
+        ("cdf", cdf, (R, W)), ("lengths", lengths, (R,)),
+        ("offsets", offsets, (R,)),
+    ):
+        _native.check_operand(t, name, torch.int32, dev, shape)
+    G = states.shape[0]
+    if words.shape[0] % G or side.shape[0] % G:
+        raise ValueError("word and side banks must hold one block per group")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _native.load("lanedecode")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stf_lane_decode(
+            idx.data_ptr(), n, rows_per_group(n), G,
+            words.data_ptr(), words.numel() // G,
+            side.data_ptr(), side.numel() // G,
+            states.data_ptr(), cdf.data_ptr(), R, W,
+            lengths.data_ptr(), offsets.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"lane_decode launch failed: {lib.stf_lane_decode_error(rc).decode()}"
+        )
+    _native.launch_counts["lane_decode"] += 1
+    return out
+
+
+def _declare(lib):
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.stf_lane_decode.restype = ctypes.c_int
+    lib.stf_lane_decode.argtypes = [
+        vp, i64, i64, i32, vp, i64, vp, i64, vp, vp, i32, i32, vp, vp, vp, vp,
+    ]
+    lib.stf_lane_decode_error.restype = ctypes.c_char_p
+    lib.stf_lane_decode_error.argtypes = [ctypes.c_int]
+
+
+_native.declare("lanedecode", _declare)

@@ -1,0 +1,123 @@
+"""Window-attention core: kernel B1 (`csrc/window_attention.cu`) and its
+plain PyTorch version.
+
+Port of `stf_tpu/layers/pallas_attention.py`. For every window and head:
+softmax(q*scale . k^T + relpos_bias[h] + shift_penalty[w]) . v, f32.
+
+Unlike the Pallas kernel, which takes window-partitioned (B*nW, nh, N, hd)
+q/k/v and a (B*nW, N, N) mask, `window_attention` reads q, k and v straight
+from the (B, H, W, 3C) qkv projection of the (rolled) NHWC map and writes
+the head-concatenated (B, H, W, C) result at the same pixels; the shift
+penalty (-100 across shift regions, the reference's SW-MSA value) comes
+from the (nW, N) per-token region labels. Windows are computed one by one
+(the JAX module's packing of several windows per 128-token tile is a TPU
+device and has no counterpart here).
+"""
+
+import ctypes
+
+import torch
+
+from .. import _native
+
+
+def partition_qkv(qkv: torch.Tensor, window: int, num_heads: int):
+    """(B, H, W, 3C) -> q, k, v each (B*nW, nh, N, hd), windows in
+    row-major (p, q) order and tokens row-major inside a window."""
+    B, H, W, C3 = qkv.shape
+    C, ws = C3 // 3, window
+    hd = C // num_heads
+    t = qkv.reshape(B, H // ws, ws, W // ws, ws, 3, num_heads, hd)
+    t = t.permute(5, 0, 1, 3, 6, 2, 4, 7)
+    t = t.reshape(3, B * (H // ws) * (W // ws), num_heads, ws * ws, hd)
+    return t[0], t[1], t[2]
+
+
+def unpartition(out: torch.Tensor, B: int, H: int, W: int, window: int):
+    """(B*nW, nh, N, hd) -> (B, H, W, nh*hd)."""
+    ws = window
+    _, nh, _, hd = out.shape
+    out = out.reshape(B, H // ws, W // ws, nh, ws, ws, hd)
+    return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, H, W, nh * hd)
+
+
+def shift_penalty(labels: torch.Tensor) -> torch.Tensor:
+    """(nW, N) region labels -> (nW, N, N) additive 0 / -100 mask."""
+    diff = labels[:, :, None] != labels[:, None, :]
+    return torch.where(diff, -100.0, 0.0).to(torch.float32)
+
+
+def window_attention_plain(qkv, bias, labels, window: int, scale: float):
+    """Plain PyTorch version of kernel B1 (same signature and layouts)."""
+    B, H, W, _ = qkv.shape
+    nh = bias.shape[0]
+    q, k, v = partition_qkv(qkv, window, nh)
+    attn = torch.matmul(q * scale, k.transpose(-2, -1))  # (B*nW, nh, N, N)
+    attn = attn + bias[None]
+    if labels is not None:
+        nW, N = labels.shape
+        attn = (
+            attn.reshape(B, nW, nh, N, N) + shift_penalty(labels)[None, :, None]
+        ).reshape(attn.shape)
+    attn = torch.softmax(attn, dim=-1)
+    return unpartition(torch.matmul(attn, v), B, H, W, window)
+
+
+def window_attention(qkv, bias, labels, window: int, scale: float):
+    """Attention over ws x ws windows of the (B, H, W, 3C) f32 qkv map ->
+    (B, H, W, C). bias: (nh, N, N) f32 gathered relative-position bias;
+    labels: (nW, N) int32 shift-region labels, or None for unshifted
+    windows. On CUDA tensors this launches kernel B1; on CPU tensors it
+    runs `window_attention_plain`."""
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, bias, labels, window, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
+    dev = qkv.device
+    if qkv.dim() != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, H, W, 3C), got {tuple(qkv.shape)}")
+    B, H, W, C3 = qkv.shape
+    C, ws, nh = C3 // 3, int(window), bias.shape[0]
+    N = ws * ws
+    if H % ws or W % ws or C % nh:
+        raise ValueError("H and W must be window multiples and C divisible by heads")
+    check = _native.check_operand
+    check(qkv, "qkv", torch.float32, dev, (B, H, W, C3))
+    check(bias, "bias", torch.float32, dev, (nh, N, N))
+    if labels is not None:
+        check(labels, "labels", torch.int32, dev, ((H // ws) * (W // ws), N))
+    lib = _native.load("winattn")
+    if not lib.stf_window_attention_supported(N, C // nh):
+        raise ValueError(
+            f"no window_attention kernel for N={N}, head dim {C // nh}"
+        )
+    out = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stf_window_attention(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if labels is None else labels.data_ptr(), out.data_ptr(),
+            B, H, W, ws, C, nh, float(scale), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "window_attention launch failed: "
+            f"{lib.stf_window_attention_error(rc).decode()}"
+        )
+    _native.launch_counts[f"window_attention_ws{ws}_hd{C // nh}"] += 1
+    return out
+
+
+def _declare(lib):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.stf_window_attention_supported.restype = ctypes.c_int
+    lib.stf_window_attention_supported.argtypes = [i32, i32]
+    lib.stf_window_attention.restype = ctypes.c_int
+    lib.stf_window_attention.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp,
+    ]
+    lib.stf_window_attention_error.restype = ctypes.c_char_p
+    lib.stf_window_attention_error.argtypes = [ctypes.c_int]
+
+
+_native.declare("winattn", _declare)

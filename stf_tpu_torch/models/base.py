@@ -1,0 +1,196 @@
+"""Shared codec model machinery (port of `stf_tpu/models/base.py`).
+
+`ChannelARModel` is the channel-wise autoregressive protocol of the
+reference family (`compressai/models/cnn.py:141-332`): hyper-latent z via
+h_a, z_hat rounded around the medians, hyper synthesis into per-latent
+means/scales, and a slice loop where slice i conditions on up to
+`max_support_slices` decoded slices, with a latent-response-prediction
+correction. This slice of the port carries the eval paths only.
+
+Layouts: `forward` takes and returns NHWC like the JAX model; the
+coding-path methods the Codec drives (`analyze`, `hyper_synthesize`,
+`decode_slice_*`, `synthesize`) work on NCHW tensors, the transforms'
+internal layout.
+"""
+
+import math
+from typing import Dict, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..entropy import gaussian_build_indexes, gaussian_likelihood
+from ..layers.conv import conv3x3
+
+
+def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int]):
+    """3x3 conv stack with a GELU between layers (none after the last);
+    convs sit at even Sequential indices like the reference's."""
+    layers = []
+    for i, s in enumerate(strides):
+        layers.append(conv3x3(channels[i], channels[i + 1], stride=s))
+        if i < len(strides) - 1:
+            layers.append(nn.GELU())
+    return nn.Sequential(*layers)
+
+
+def slice_transform(in_ch: int, out_ch: int):
+    """5-stage 3x3 stack in -> 224 -> 176 -> 128 -> 64 -> out (reference
+    `cnn.py:89-127`)."""
+    return conv_gelu_stack((in_ch, 224, 176, 128, 64, out_ch), (1,) * 5)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise every parameter from `generator`: convs and linears
+    uniform in ±1/sqrt(fan_in) (torch's default scale), relative-position
+    tables N(0, 0.02) clipped at ±0.04, GDN and the bottleneck by their own
+    `reset_parameters`. Deterministic for a given generator state."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+            elif hasattr(m, "relative_position_bias_table"):
+                t = m.relative_position_bias_table
+                t.normal_(0.0, 0.02, generator=generator).clamp_(-0.04, 0.04)
+            elif hasattr(m, "reset_parameters") and not list(m.children()):
+                m.reset_parameters(generator)
+    return model
+
+
+class ChannelARModel(nn.Module):
+    """Base for codecs with a channel-AR Gaussian conditional over slices.
+
+    Subclasses set g_a, g_s, h_a, h_mean_s, h_scale_s,
+    cc_mean_transforms / cc_scale_transforms / lrp_transforms,
+    entropy_bottleneck, num_slices and max_support_slices."""
+
+    hyper_upsample = 4
+
+    def analysis(self, x):
+        return self.g_a(x)
+
+    def synthesis(self, y_hat):
+        return self.g_s(y_hat)
+
+    # -- slice helpers --------------------------------------------------------
+
+    def _support(self, y_hat_slices):
+        k = self.max_support_slices
+        return list(y_hat_slices) if k < 0 else list(y_hat_slices)[:k]
+
+    def slice_boundaries(self, M: int):
+        """Channel split points: ceil(M/S)-wide slices, remainder last."""
+        w = -(-M // self.num_slices)
+        return [min(w * i, M) for i in range(1, self.num_slices)]
+
+    def split_slices(self, y):
+        bounds = [0] + self.slice_boundaries(y.shape[1]) + [y.shape[1]]
+        return [y[:, a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def _slice_mu_scale(self, i, latent_means, latent_scales, support_slices):
+        mean_support = torch.cat([latent_means] + list(support_slices), dim=1)
+        mu = self.cc_mean_transforms[i](mean_support)
+        scale_support = torch.cat([latent_scales] + list(support_slices), dim=1)
+        scale = self.cc_scale_transforms[i](scale_support)
+        return mu, scale, mean_support
+
+    def _lrp(self, i, mean_support, y_hat_slice):
+        lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
+        return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
+
+    # -- eval forward ---------------------------------------------------------
+
+    def forward(self, x) -> Dict:
+        """x: NHWC float in [0, 1]. Returns the unclipped NHWC x_hat and NHWC
+        likelihoods {"y", "z"}, rounding (eval) quantization."""
+        y = self.analysis(x.permute(0, 3, 1, 2).contiguous())
+        y_hat, likelihoods = self.entropy_forward(y)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        return {
+            "x_hat": nhwc(self.synthesis(y_hat)),
+            "likelihoods": {k: nhwc(v) for k, v in likelihoods.items()},
+        }
+
+    def entropy_forward(self, y):
+        """Hyper path + channel-AR slice loop on NCHW y; returns (y_hat,
+        likelihoods)."""
+        z = self.h_a(y)
+        _, z_likelihoods = self.entropy_bottleneck(z)
+        medians = self.entropy_bottleneck.medians()[None, :, None, None]
+        z_hat = torch.round(z - medians) + medians
+        latent_means, latent_scales = self.hyper_synthesize(
+            z_hat, (y.shape[2], y.shape[3])
+        )
+        y_hat_slices, y_likelihoods = [], []
+        for i, y_slice in enumerate(self.split_slices(y)):
+            mu, scale, mean_support = self._slice_mu_scale(
+                i, latent_means, latent_scales, self._support(y_hat_slices)
+            )
+            y_hat_slice = torch.round(y_slice - mu) + mu
+            y_likelihoods.append(gaussian_likelihood(y_hat_slice, scale, mu))
+            y_hat_slice = y_hat_slice + self._lrp(i, mean_support, y_hat_slice)
+            y_hat_slices.append(y_hat_slice)
+        likelihoods = {"y": torch.cat(y_likelihoods, dim=1), "z": z_likelihoods}
+        return torch.cat(y_hat_slices, dim=1), likelihoods
+
+    # -- coding-path methods (NCHW), driven by models/codec.py ----------------
+
+    def analyze(self, x):
+        """Encoder-side transforms: x -> (y, z)."""
+        y = self.analysis(x)
+        return y, self.h_a(y)
+
+    def hyper_synthesize(self, z_hat, y_shape):
+        h, w = y_shape
+        latent_scales = self.h_scale_s(z_hat)[:, :, :h, :w]
+        latent_means = self.h_mean_s(z_hat)[:, :, :h, :w]
+        return latent_means, latent_scales
+
+    def decode_slice_indexes(self, i, latent_means, latent_scales, support,
+                             scale_table):
+        """First decode half-step: per-slice mu + scale-table indexes."""
+        mu, scale, _ = self._slice_mu_scale(
+            i, latent_means, latent_scales, support
+        )
+        return mu, gaussian_build_indexes(scale, scale_table)
+
+    def decode_slice_apply(self, i, latent_means, support, mu, rv):
+        """Second half-step: dequantize + lrp correction -> y_hat slice."""
+        mean_support = torch.cat([latent_means] + list(support), dim=1)
+        y_hat_slice = rv.to(mu.dtype) + mu
+        return y_hat_slice + self._lrp(i, mean_support, y_hat_slice)
+
+    def decode_slice_fused(self, i, latent_means, latent_scales, support,
+                           mu_prev, rv_prev, scale_table):
+        """Reconstruct slice i-1 from its symbols, then compute slice i's
+        (mu, indexes). `support` is slice i-1's capped support list."""
+        support = list(support)
+        y_hat_prev = self.decode_slice_apply(
+            i - 1, latent_means, support, mu_prev, rv_prev
+        )
+        support_i = self._support(support + [y_hat_prev])
+        mu, idx = self.decode_slice_indexes(
+            i, latent_means, latent_scales, support_i, scale_table
+        )
+        return y_hat_prev, mu, idx
+
+    def synthesize(self, y_hat):
+        return torch.clamp(self.synthesis(y_hat), 0.0, 1.0)
+
+
+def make_slice_transforms(M: int, num_slices: int, max_support: int):
+    """(cc_mean, cc_scale, lrp) ModuleLists with the reference widths:
+    slice i's context is the M hyper channels plus its decoded support
+    (at most max_support slices); lrp also sees the slice itself."""
+    slice_ch = M // num_slices
+    n_support = [i if max_support < 0 else min(i, max_support)
+                 for i in range(num_slices)]
+    cc_in = [M + slice_ch * k for k in n_support]
+    return (
+        nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),
+        nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),
+        nn.ModuleList(slice_transform(c + slice_ch, slice_ch) for c in cc_in),
+    )

@@ -1,0 +1,197 @@
+"""JAX/flax params -> port state_dict (the inverse of
+`stf_tpu/zoo/torch_import.py`, WACNN rules only so far).
+
+The input is a nested dict of NumPy arrays under flax names, as
+``jax.tree_util.tree_map(np.asarray, params)`` gives; the output is a
+state_dict for the port's `WACNN` (reference torch key names). Layouts are
+inverted leaf by leaf: conv HWIO -> OIHW, transposed conv (spatially
+flipped HWIO) -> IOHW, dense (in, out) -> Linear (out, in); "direct"
+leaves (GDN beta/gamma, bias tables, bottleneck parameters) pass through.
+
+`strip_prefixes` is the reference's `load_pretrained` key clean-up, so a
+reference `.pth.tar` state_dict loads into the port with
+``model.load_state_dict(strip_prefixes(sd), strict=False)``; strict=False
+because such files also hold derived buffers the port rebuilds itself
+(CDF tables, `relative_position_index`, the reparametrizers' pedestals).
+"""
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def strip_prefixes(state_dict: Dict) -> Dict:
+    """Strip DataParallel's `module.` prefix, drop legacy `h_s.` keys, and
+    rename legacy ParameterList bottleneck keys (`_biases.0` -> `_bias0`,
+    same for matrices/factors)."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith("h_s."):
+            continue
+        for plural, singular in (
+            ("._biases.", "._bias"),
+            ("._matrices.", "._matrix"),
+            ("._factors.", "._factor"),
+        ):
+            if plural in k:
+                head, idx = k.rsplit(".", 1)
+                k = head.replace(plural[:-1], singular) + idx
+        out[k] = v
+    return out
+
+
+def conv_kernel_to_torch(w: np.ndarray) -> np.ndarray:
+    """flax conv HWIO -> torch OIHW."""
+    return w.transpose(3, 2, 0, 1)
+
+
+def deconv_kernel_to_torch(w: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose HWIO (spatially flipped) -> torch IOHW."""
+    return np.ascontiguousarray(w[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def dense_kernel_to_torch(w: np.ndarray) -> np.ndarray:
+    """flax Dense (in, out) -> torch Linear (out, in)."""
+    return w.transpose(1, 0)
+
+
+_TO_TORCH = {
+    "conv": conv_kernel_to_torch,
+    "deconv": deconv_kernel_to_torch,
+    "dense": dense_kernel_to_torch,
+}
+
+_LEAF = {"kernel": "weight", "bias": "bias"}  # flax leaf -> torch leaf
+
+# Win_noShift_Attention internals (WACNN g_a/g_s):
+#   res_a{r}/Conv_{c}/Conv_0 -> conv_a.{r}.conv.{0|2|4}
+#   win_attn/attn/...        -> conv_b.0.attn....
+#   res_b{r}/Conv_{c}/Conv_0 -> conv_b.{r+1}.conv.{0|2|4}
+#   proj/Conv_0              -> conv_b.4
+_CONV_IDX = {"0": "0", "1": "2", "2": "4"}
+
+
+def _attn_rules(f: str, t: str):
+    rules = []
+    for c_flax, c_torch in _CONV_IDX.items():
+        rules += [
+            (rf"{f}/res_a(\d)/Conv_{c_flax}/Conv_0",
+             rf"{t}.conv_a.\1.conv.{c_torch}", "conv"),
+            (rf"{f}/res_b(\d)/Conv_{c_flax}/Conv_0",
+             rf"{t}.conv_b.\g<1>PLUS1.conv.{c_torch}", "conv"),
+        ]
+    rules += [
+        (rf"{f}/win_attn/attn/qkv", rf"{t}.conv_b.0.attn.qkv", "dense"),
+        (rf"{f}/win_attn/attn/proj", rf"{t}.conv_b.0.attn.proj", "dense"),
+        (rf"{f}/win_attn/attn/relative_position_bias_table",
+         rf"{t}.conv_b.0.attn.relative_position_bias_table", "direct"),
+        (rf"{f}/proj/Conv_0", rf"{t}.conv_b.4", "conv"),
+    ]
+    return rules
+
+
+def _hyper_synthesis_rules(name: str):
+    """conv_0 -> seq0, up_k -> seq(2+4k).0 (subpel conv), conv_k -> seq(4k)."""
+    return [
+        (rf"{name}/conv_0/Conv_0", rf"{name}.0", "conv"),
+        (rf"{name}/up_0/Conv_0/Conv_0", rf"{name}.2.0", "conv"),
+        (rf"{name}/conv_1/Conv_0", rf"{name}.4", "conv"),
+        (rf"{name}/up_1/Conv_0/Conv_0", rf"{name}.6.0", "conv"),
+        (rf"{name}/conv_2/Conv_0", rf"{name}.8", "conv"),
+    ]
+
+
+def wacnn_rules():
+    """(flax path regex, torch key template, kind) for every WACNN leaf."""
+    ga_seq = {"conv_0": 0, "gdn_0": 1, "conv_1": 2, "gdn_1": 3, "attn_0": 4,
+              "conv_2": 5, "gdn_2": 6, "conv_3": 7, "attn_1": 8}
+    gs_seq = {"attn_0": 0, "deconv_0": 1, "igdn_0": 2, "deconv_1": 3,
+              "igdn_1": 4, "attn_1": 5, "deconv_2": 6, "igdn_2": 7,
+              "deconv_3": 8}
+    rules = []
+    for name, idx in ga_seq.items():
+        if name.startswith("conv"):
+            rules.append((rf"g_a/{name}/Conv_0", rf"g_a.{idx}", "conv"))
+        elif name.startswith("gdn"):
+            rules.append((rf"g_a/{name}/(beta|gamma)", rf"g_a.{idx}.\1",
+                          "direct"))
+        else:
+            rules += _attn_rules(f"g_a/{name}", f"g_a.{idx}")
+    for name, idx in gs_seq.items():
+        if name.startswith("deconv"):
+            rules.append((rf"g_s/{name}/ConvTranspose_0", rf"g_s.{idx}",
+                          "deconv"))
+        elif name.startswith("igdn"):
+            rules.append((rf"g_s/{name}/(beta|gamma)", rf"g_s.{idx}.\1",
+                          "direct"))
+        else:
+            rules += _attn_rules(f"g_s/{name}", f"g_s.{idx}")
+    rules.append((r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv"))
+    rules += _hyper_synthesis_rules("h_mean_s")
+    rules += _hyper_synthesis_rules("h_scale_s")
+    rules.append((r"(cc_mean|cc_scale|lrp)_(\d+)/stack/conv_(\d)/Conv_0",
+                  r"\1_transforms.\2.SEQTIMES2", "conv"))
+    rules += [
+        (r"entropy_bottleneck/matrix_(\d)", r"entropy_bottleneck._matrix\1",
+         "direct"),
+        (r"entropy_bottleneck/bias_(\d)", r"entropy_bottleneck._bias\1",
+         "direct"),
+        (r"entropy_bottleneck/factor_(\d)", r"entropy_bottleneck._factor\1",
+         "direct"),
+        (r"entropy_bottleneck/quantiles", r"entropy_bottleneck.quantiles",
+         "direct"),
+    ]
+    return rules
+
+
+def _translate(rules, path: Tuple[str, ...]):
+    joined = "/".join(path)
+    for pattern, template, kind in rules:
+        m = re.fullmatch(pattern, joined)
+        if m:
+            return _fix_key(m.expand(template), joined), kind
+    return None, None
+
+
+def _fix_key(key: str, path_joined: str) -> str:
+    """Template placeholders: SEQTIMES2 (conv_i -> seq 2*i), PLUS1
+    (residual unit index shift)."""
+    if "SEQTIMES2" in key:
+        m = re.search(r"conv_(\d)", path_joined)
+        key = key.replace("SEQTIMES2", str(2 * int(m.group(1))))
+    m = re.search(r"(\d)PLUS1", key)
+    if m:
+        key = key.replace(m.group(0), str(int(m.group(1)) + 1))
+    return key
+
+
+def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """WACNN flax params (nested dict of arrays) -> port state_dict.
+    Raises KeyError for a leaf no rule maps."""
+    rules = wacnn_rules()
+    flat = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        else:
+            flat[path] = np.asarray(tree)
+
+    walk(params, ())
+    out = {}
+    for path, leaf in flat.items():
+        key, kind = _translate(rules, path)
+        if key is None:
+            base, kind = _translate(rules, path[:-1])
+            if base is None or kind == "direct":
+                raise KeyError(f"no torch mapping for {'/'.join(path)!r}")
+            key = f"{base}.{_LEAF[path[-1]]}"
+            if path[-1] == "kernel":
+                leaf = _TO_TORCH[kind](leaf)
+        out[key] = torch.from_numpy(np.array(leaf))  # a writable copy
+    return out

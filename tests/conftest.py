@@ -23,3 +23,9 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skipped where there is none)"
+    )

@@ -1,0 +1,86 @@
+"""The port's lane coder against the JAX one: tables, encoder bytes, and
+kernel B2's plain version (`lane_decode_plain`, what the wrapper runs on
+CPU tensors), which must be symbol-exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from stf_tpu.ans import lane_coder as jlc
+from stf_tpu.entropy import build_gc_tables as jax_build_gc_tables
+from stf_tpu_torch.ans import lane_coder as lc
+from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
+
+
+@pytest.fixture(scope="module")
+def tables():
+    full = build_gc_tables(get_scale_table())
+    return lc.truncate_tables(*full.astuple(), max_half=62)
+
+
+def test_truncated_tables_match_jax(tables):
+    ref = jlc.truncate_tables(
+        *jax_build_gc_tables(get_scale_table()).astuple(), max_half=62
+    )
+    for got, want in zip(tables, ref):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert tables.cdf.shape == (64, 127)
+
+
+def _symbols(n, seed, n_escape=0):
+    """Seeded (symbols, indexes): Gaussian symbols under random table rows,
+    the first n_escape forced outside the ±62 window."""
+    rng = np.random.default_rng(seed)
+    scales = get_scale_table()
+    idx = rng.integers(0, 40, n).astype(np.int32)
+    sym = np.rint(rng.normal(0, scales[idx] * 0.7)).astype(np.int32)
+    k = min(n_escape, n)
+    sym[:k] = rng.integers(63, 5000, k) * rng.choice([-1, 1], k)
+    return sym, idx
+
+
+# escapes; n not a multiple of 128; n < 1024 (some groups hold only padding)
+CASES = [(5000, 300), (3000 + 77, 0), (700, 5), (129, 1)]
+
+
+@pytest.mark.parametrize("n,n_escape", CASES)
+def test_encoder_bytes_match_jax(tables, n, n_escape):
+    sym, idx = _symbols(n, n + 1, n_escape)
+    got = lc.pack_lane_stream([lc.lane_encode(sym, idx, tables)])
+    want = jlc.pack_lane_stream([jlc.lane_encode(sym, idx, tables)])
+    assert got == want
+
+
+@pytest.mark.parametrize("n,n_escape", CASES)
+def test_plain_decode_is_symbol_exact(tables, n, n_escape):
+    sym, idx = _symbols(n, n + 2, n_escape)
+    stream = lc.lane_encode(sym, idx, tables)
+    assert (stream.side.size > 0) == (n_escape > 0)
+    # framed and unframed, as the codec sees it
+    (stream,) = lc.unpack_lane_stream(lc.pack_lane_stream([stream]))
+    words = lc.pack_word_banks(stream, lc.words_rows_for(stream.word_counts.max()))
+    side = lc.pad_side_banks(stream, lc.side_rows_for(stream.side_counts.max()))
+    got = lc.lane_decode(
+        torch.from_numpy(idx), torch.from_numpy(words), torch.from_numpy(side),
+        lc.states_tensor(stream, "cpu"), *lc.table_tensors(tables, "cpu"), n,
+    )
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    got = got.numpy()
+    np.testing.assert_array_equal(got, sym)
+    np.testing.assert_array_equal(
+        got, jlc.lane_decode_reference(stream, idx, tables)
+    )
+    np.testing.assert_array_equal(
+        got, np.asarray(jlc.lane_decode(stream, idx, tables, interpret=True))
+    )
+
+
+def test_port_decodes_jax_stream(tables):
+    sym, idx = _symbols(2500, 9, 40)
+    (stream,) = lc.unpack_lane_stream(
+        jlc.pack_lane_stream([jlc.lane_encode(sym, idx, tables)])
+    )
+    np.testing.assert_array_equal(
+        lc.lane_decode_reference(stream, idx, tables), sym
+    )
