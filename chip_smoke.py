@@ -7,18 +7,27 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card, its power limit, and the torch / CUDA versions;
-  2. build both CUDA kernels (nvcc, sm_90a) and the rANS library from the
-     sources in this checkout, all compilers started at once;
+  2. build the four CUDA kernels (nvcc, sm_90a) and the rANS library from
+     the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
      WACNN's two attention geometries for batch 2 with shift labels;
   4. kernel B2 (lane-rANS decode) against its plain version and the
-     encoded symbols, on a seeded 1,179,648-symbol stream with escapes
+     encoded symbols, on a seeded 1,179,648-symbol stream with 1% escapes
      (one Kodak-size slice at batch 24);
-  5. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
+  5. kernel B3 (lane-rANS encode) on the same stream: its stream must
+     equal the native host encoder's field by field, and its outputs the
+     plain version's;
+  6. kernel B4 (layout pin) on the fused decode's operands (a cropped
+     f32 view, a permuted i32 view) and odd-sized uint8 and bf16 tensors:
+     bytes equal to the plain version's;
+  7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
-     uint8 images with coder="lane" and coder="host"; decoded symbols
-     must equal the encoded ones, the two x_hat must be bit-equal, and
-     each kernel's launch count over this run must match the path.
+     uint8 images with coder="lane" (y encoded by B3; fused and per-slice
+     decompress) and coder="host"; the lane y-stream must equal the host
+     lane encoder's on the same symbols, symbols and x_hat must agree
+     across the paths, and each kernel's launch count must match the path
+     (compress: 10 B3 launches; fused decompress: one graph replay, 10 B2
+     and 32 B4 launches, no hash fallback).
 
 It prints the kernels' JSON line, then the card's name and power limit as
 nvidia-smi gives them, and last one JSON line {"ok": true, "device": ...}.
@@ -147,14 +156,13 @@ def phase_attention(dev):
     return rows
 
 
-def phase_lane_decode(dev):
-    """B2 vs its plain version and the encoded symbols."""
+def lane_inputs():
+    """(tables, symbols, indexes): a seeded 1,179,648-symbol slice (one
+    Kodak-size slice at batch 24) with 1% escapes."""
     import numpy as np
-    import torch
 
     from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
-    from stf_tpu_torch.models.codec import _bucket
 
     n = 49152 * 24
     scales = get_scale_table()
@@ -164,6 +172,19 @@ def phase_lane_decode(dev):
     sym = np.rint(rng.normal(0, scales[idx] * 0.7)).astype(np.int32)
     esc = rng.random(n) < 0.01  # forced escapes beyond the ±62 window
     sym[esc] = rng.integers(63, 3000, int(esc.sum())) * rng.choice([-1, 1], int(esc.sum()))
+    return tables, sym, idx
+
+
+def phase_lane_decode(dev):
+    """B2 vs its plain version and the encoded symbols."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.ans import lane_coder as lc
+    from stf_tpu_torch.models.codec import _bucket
+
+    tables, sym, idx = lane_inputs()
+    n = sym.size
     t0 = time.perf_counter()
     stream = lc.lane_encode(sym, idx, tables)
     enc_s = time.perf_counter() - t0
@@ -194,7 +215,7 @@ def phase_lane_decode(dev):
     # ~30 integer operations per symbol: 7-step search, update, renorm, ranks
     bound_ms, bound_by = bound(nbytes, 30 * n)
     tg = lc.rows_per_group(n)
-    print(f"B2 lane_decode: n {n} escapes {int(esc.sum())} stream {stream_bytes} B "
+    print(f"B2 lane_decode: n {n} escapes {int(stream.side_counts.sum())} stream {stream_bytes} B "
           f"(host encode {enc_s:.3f} s) exact; kernel {ms:.4f} ms plain "
           f"{plain_ms:.2f} ms bound {bound_ms:.4f} ms ({bound_by}); serial "
           f"chain {tg} rows/group")
@@ -207,8 +228,131 @@ def phase_lane_decode(dev):
     )]
 
 
-def phase_codec(dev):
-    """The main path: full-width WACNN lane and host round trips."""
+def phase_lane_encode(dev):
+    """B3 vs its plain version and the native host encoder."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.ans import lane_coder as lc
+
+    tables, sym, idx = lane_inputs()
+    n = sym.size
+    G, K = lc.GROUPS, lc.K
+    t0 = time.perf_counter()
+    want = lc.lane_encode(sym, idx, tables)
+    host_s = time.perf_counter() - t0
+    args = (
+        torch.from_numpy(sym).to(dev), torch.from_numpy(idx).to(dev),
+        *lc.table_tensors(tables, dev), n, int(tables.offsets[0]),
+    )
+    out = lc.lane_encode_device(*args)
+    plain = lc.lane_encode_device_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("words", "side", "states", "counts"), out, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"B3 {name} differs from the plain version")
+    words, side, states, counts = (a.cpu().numpy() for a in out)
+    if counts[:, 2].any():
+        raise AssertionError(f"B3 side overflow flags {counts[:, 2].tolist()}")
+    tg, wcap_rows, scap_rows = lc.encode_caps(n)
+    got = lc.assemble_from_tails(
+        words.reshape(G, wcap_rows, K)[:, :tg], side.reshape(G, scap_rows, K),
+        states, counts, n,
+    )
+    for field in lc.LaneStream._fields:
+        if not np.array_equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"B3 stream {field} differs from lane_encode's")
+    ms = cuda_ms(lambda: lc.lane_encode_device(*args), 20)
+    plain_ms = cuda_ms(lambda: lc.lane_encode_device_plain(*args), 1)
+    # symbols and indexes in, the four outputs (int32 cells) out
+    nbytes = 8 * n + 4 * tables.cdf.size + 4 * (
+        words.size + side.size + states.size + counts.size
+    )
+    # ~40 integer operations per symbol over the two passes
+    bound_ms, bound_by = bound(nbytes, 40 * n)
+    stream_bytes = 2 * int(got.word_counts.sum()) + 4 * int(got.side_counts.sum())
+    print(f"B3 lane_encode: n {n} escapes {int(got.side_counts.sum())} stream "
+          f"{stream_bytes} B, identical to the host encoder's; kernel {ms:.4f} ms "
+          f"plain {plain_ms:.2f} ms host encode {host_s:.3f} s bound "
+          f"{bound_ms:.4f} ms ({bound_by}); serial chain 2 x {tg} rows/group; "
+          f"overflow flags {counts[:, 2].tolist()}")
+    return [dict(
+        name="lane_encode", route="cuda",
+        source="stf_tpu_torch/csrc/lane_encode.cu",
+        replaces="stf_tpu/ans/lane_coder.py:801",
+        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )]
+
+
+def phase_layout_pin(dev):
+    """B4 vs its plain version on the fused decode's operands; timed
+    against x.contiguous() on the cropped latent-means view."""
+    import torch
+
+    from stf_tpu_torch.ans import lane_coder as lc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lm = torch.randn(BATCH, 320, 36, 52, device=dev, generator=gen)
+    cases = {
+        "lm (2,320,32,48) f32 cropped": lm[:, :, :32, :48],
+        "rv (2,32,32,48) i32 permuted": torch.randint(
+            -99, 99, (BATCH, 32, 48, 32), device=dev, generator=gen,
+            dtype=torch.int32).permute(0, 3, 1, 2),
+        "(3,7,11,5) uint8": torch.randint(
+            0, 256, (3, 7, 11, 5), device=dev, generator=gen,
+            dtype=torch.int32).to(torch.uint8),
+        "(13,129) bf16": torch.randn(
+            13, 129, device=dev, generator=gen).to(torch.bfloat16),
+    }
+    for name, x in cases.items():
+        got = lc.layout_pin(x)
+        want = lc.layout_pin_plain(x)
+        torch.cuda.synchronize()
+        if not (got.is_contiguous() and torch.equal(
+                got.view(torch.uint8), want.view(torch.uint8))):
+            raise AssertionError(f"B4 {name}: bytes differ from the plain version")
+    x = cases["lm (2,320,32,48) f32 cropped"]
+    ms = cuda_ms(lambda: lc.layout_pin(x), 100)
+    plain_ms = cuda_ms(lambda: lc.layout_pin_plain(x), 100)
+    lib_ms = cuda_ms(lambda: x.contiguous(), 100)
+    bound_ms, bound_by = bound(2 * x.numel() * x.element_size(), 0)
+    print(f"B4 layout_pin: {len(cases)} operands bit-exact; lm {tuple(x.shape)} "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms contiguous() "
+          f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
+    return [dict(
+        name="layout_pin", route="cuda",
+        source="stf_tpu_torch/csrc/layout_pin.cu",
+        replaces="stf_tpu/ans/lane_coder.py:706",
+        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+    )]
+
+
+def host_lane_stream(codec, enc):
+    """The lane y-stream the native host encoder makes from a compress's
+    symbols and indexes: header, index hashes, packed segments."""
+    import numpy as np
+
+    from stf_tpu_torch.ans import lane_coder as lc
+    from stf_tpu_torch.models.codec import _LANE_HEADER_MAGIC, idx_hash
+
+    flat = lambda t: t.cpu().numpy().reshape(-1)  # noqa: E731
+    hashes = [int(idx_hash(i.reshape(-1))) for i in enc["indexes"]]
+    return (
+        np.asarray([_LANE_HEADER_MAGIC] + hashes, "<u4").tobytes()
+        + lc.pack_lane_stream([
+            lc.lane_encode(flat(s), flat(i), codec.lane_tables)
+            for s, i in zip(enc["symbols"], enc["indexes"])
+        ])
+    )
+
+
+def phase_codec(dev, smi):
+    """The main path: full-width WACNN lane (B3 encode, fused and
+    per-slice decompress) and host round trips."""
+    import warnings
+
     import numpy as np
     import torch
 
@@ -222,6 +366,7 @@ def phase_codec(dev):
     lane = Codec(model, coder="lane", device=dev)
     host = Codec(model, coder="host", device=dev)
     counts = _native.launch_counts
+    S = model.num_slices
 
     def timed(fn, *a):
         torch.cuda.synchronize()
@@ -230,39 +375,66 @@ def phase_codec(dev):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    def delta(before):
-        return {k: v - before.get(k, 0) for k, v in counts.items()
-                if v - before.get(k, 0)}
+    def per_slice_decompress(enc):
+        lane.fused = False
+        try:
+            return lane.decompress(enc["strings"], enc["shape"])
+        finally:
+            lane.fused = True
 
+    def fused_strict(enc):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a hash fallback fails the smoke
+            return lane.decompress(enc["strings"], enc["shape"])
+
+    steps, secs = {}, {}
+
+    def run(step, fn, *a):
+        """fn(*a) timed, with the kernel launches it made recorded."""
+        snap = dict(counts)
+        result, secs[step] = timed(fn, *a)
+        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
+                       if v - snap.get(k, 0)}
+        return result
+
+    first, fused, per_slice = (
+        "lane decompress (fused, first: warm-up + capture + replay)",
+        "fused decompress (replay)",
+        "per-slice decompress",
+    )
     counts.clear()  # the main path starts here
-    steps = {}
-    snap = dict(counts)
-    enc, enc_s = timed(lane.compress, x)
-    steps["lane compress"] = delta(snap)
-    snap = dict(counts)
-    dec, dec_s = timed(lane.decompress, enc["strings"], enc["shape"])
-    steps["lane decompress"] = delta(snap)
-    snap = dict(counts)
-    henc, henc_s = timed(host.compress, x)
-    steps["host compress"] = delta(snap)
-    snap = dict(counts)
-    hdec, hdec_s = timed(host.decompress, henc["strings"], henc["shape"])
-    steps["host decompress"] = delta(snap)
+    enc = run("lane compress", lane.compress, x)
+    dec = run(first, fused_strict, enc)
+    henc = run("host compress", host.compress, x)
+    hdec = run("host decompress", host.decompress, henc["strings"], henc["shape"])
+    fdec = run(fused, fused_strict, enc)
+    wdec = run(per_slice, per_slice_decompress, enc)
     launches = dict(counts)  # the main path ends here
     for step, d in steps.items():
         print(f"launches in {step}: {d}")
 
-    S = model.num_slices
-    for i, (s, d) in enumerate(zip(enc["symbols"], dec["symbols"])):
-        if not np.array_equal(s, d.cpu().numpy()):
-            raise AssertionError(f"lane: slice {i} decoded symbols differ")
+    for name, d in (("lane fused", dec), ("lane per-slice", wdec), ("fused", fdec)):
+        for i, (s, got) in enumerate(zip(enc["symbols"], d["symbols"])):
+            if not torch.equal(s, got):
+                raise AssertionError(f"{name}: slice {i} decoded symbols differ")
     for i, (s, d) in enumerate(zip(henc["symbols"], hdec["symbols"])):
-        if not np.array_equal(s, d.cpu().numpy()):
+        if not torch.equal(s, d):
             raise AssertionError(f"host: slice {i} decoded symbols differ")
-    if not all(np.array_equal(a, b) for a, b in zip(enc["symbols"], henc["symbols"])):
+    if not all(torch.equal(a, b) for a, b in zip(enc["symbols"], henc["symbols"])):
         raise AssertionError("lane and host walks quantized different symbols")
-    if not torch.equal(dec["x_hat"], hdec["x_hat"]):
-        raise AssertionError("lane and host x_hat are not bit-equal")
+    t0 = time.perf_counter()
+    if enc["strings"][0][0] != host_lane_stream(lane, enc):
+        raise AssertionError("B3-encoded y-stream differs from the host lane encoder's")
+    host_lane_s = time.perf_counter() - t0
+    if henc["strings"][1] != enc["strings"][1]:
+        raise AssertionError("lane and host codecs wrote different z strings")
+    if enc["host_encoded"] == S:
+        raise AssertionError("every B3-encoded segment overflowed to the host")
+    for name, d in (("lane fused", dec), ("fused", fdec), ("per-slice", wdec)):
+        if not torch.equal(d["x_hat"], hdec["x_hat"]):
+            raise AssertionError(f"{name} x_hat is not bit-equal to the host coder's")
+    if len(lane._graphs) != 1:
+        raise AssertionError(f"{len(lane._graphs)} fused graphs for one geometry")
     x_hat = dec["x_hat"]
     if x_hat.shape != (BATCH, HEIGHT, WIDTH, 3) or not torch.isfinite(x_hat).all():
         raise AssertionError(f"x_hat shape {tuple(x_hat.shape)} or values bad")
@@ -274,16 +446,24 @@ def phase_codec(dev):
     if not fwd_err <= 1e-3:
         raise AssertionError(f"codec x_hat vs eval forward: {fwd_err}")
 
-    b1 = {k: v for k, v in launches.items() if k.startswith("window_attention")}
-    for step, want in (("lane compress", 2), ("lane decompress", 2),
-                       ("host compress", 2), ("host decompress", 2)):
-        got = sum(v for k, v in steps[step].items() if k.startswith("window_attention"))
-        if got != want:
-            raise AssertionError(f"B1 launched {got} times in {step}, want {want}")
-    if steps["lane decompress"].get("lane_decode", 0) != S:
-        raise AssertionError(f"B2 launched {steps['lane decompress']} in lane decompress")
-    if len(b1) != 2 or launches.get("lane_decode", 0) != S:
-        raise AssertionError(f"launch counts {launches}")
+    def b1(d):
+        return sum(v for k, v in d.items() if k.startswith("window_attention"))
+
+    # (step, B1, B2, B3, B4) launches each step must show
+    want = (
+        ("lane compress", 2, 0, S, 0),
+        (first, 4, 2 * S, 0, 64),
+        ("host compress", 2, 0, 0, 0),
+        ("host decompress", 2, 0, 0, 0),
+        (fused, 2, S, 0, 32),
+        (per_slice, 2, S, 0, 0),
+    )
+    for step, *expect in want:
+        d = steps[step]
+        got = [b1(d), d.get("lane_decode", 0), d.get("lane_encode", 0),
+               d.get("layout_pin", 0)]
+        if got != expect:
+            raise AssertionError(f"{step}: B1/B2/B3/B4 launches {got}, want {expect}")
 
     pixels = BATCH * HEIGHT * WIDTH
     lane_bytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
@@ -291,12 +471,21 @@ def phase_codec(dev):
     p = psnr(x_hat, xf).item()
     print(f"codec (seed weights, not an operating point): {BATCH}x{HEIGHT}x{WIDTH} "
           f"lane {lane_bytes * 8 / pixels:.4f} bpp host {host_bytes * 8 / pixels:.4f} "
-          f"bpp PSNR {p:.3f} dB; lane encode {enc_s:.3f} s decode {dec_s:.3f} s; "
-          f"host encode {henc_s:.3f} s decode {hdec_s:.3f} s (first calls); "
-          f"eval-forward max diff {fwd_err:.3g}")
-    enc2, enc2_s = timed(lane.compress, x)
-    _, dec2_s = timed(lane.decompress, enc2["strings"], enc2["shape"])
-    print(f"codec repeat: lane encode {enc2_s:.3f} s decode {dec2_s:.3f} s")
+          f"bpp PSNR {p:.3f} dB; B3 segments sent to the host encoder: "
+          f"{enc['host_encoded']} of {S}; y-stream identical to the host lane "
+          f"encoder's (which took {host_lane_s:.3f} s); eval-forward max diff "
+          f"{fwd_err:.3g}")
+    print("first calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    # warm per-call times, medians of 5
+    warm = {}
+    for name, fn in (
+        ("lane compress (B3)", lambda: lane.compress(x)),
+        ("fused decompress", lambda: fused_strict(enc)),
+        ("per-slice decompress", lambda: per_slice_decompress(enc)),
+    ):
+        warm[name] = float(np.median([timed(fn)[1] for _ in range(5)]))
+    print(f"warm per call ({smi}): "
+          + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
     return launches
 
 
@@ -331,8 +520,9 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
-    rows = phase_attention(dev) + phase_lane_decode(dev)
-    launches = phase_codec(dev)
+    rows = (phase_attention(dev) + phase_lane_decode(dev)
+            + phase_lane_encode(dev) + phase_layout_pin(dev))
+    launches = phase_codec(dev, smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
         if not row["launches"]:

@@ -6,7 +6,7 @@ counterpart is easy to find:
 
     stf_tpu_torch.ops       differentiable ops (LowerBound, ste_round, ...)
     stf_tpu_torch.ans       native C++ rANS coder (ctypes) + lane coder with
-                            its CUDA decode kernel
+                            its CUDA encode, decode and layout-pin kernels
     stf_tpu_torch.entropy   entropy models and host-side CDF tables/coders
     stf_tpu_torch.layers    convs, GDN, window attention (CUDA core kernel)
     stf_tpu_torch.models    WACNN, the channel-AR base and the Codec

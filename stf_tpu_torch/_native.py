@@ -1,12 +1,14 @@
 """Build and load the port's native libraries, and count kernel launches.
 
-Three shared libraries with plain C interfaces, loaded with ctypes:
+Five shared libraries with plain C interfaces, loaded with ctypes:
 
   * ``librans``        ``ans/csrc/rans_coder.cpp`` (host rANS + lane
                        encoder), built with ``g++``;
   * ``libwinattn``     ``csrc/window_attention.cu`` (kernel B1);
-  * ``liblanedecode``  ``csrc/lane_decode.cu`` (kernel B2), built with
-                       ``nvcc`` for ``sm_90a``.
+  * ``liblanedecode``  ``csrc/lane_decode.cu`` (kernel B2);
+  * ``liblaneencode``  ``csrc/lane_encode.cu`` (kernel B3);
+  * ``liblayoutpin``   ``csrc/layout_pin.cu`` (kernel B4); the four CUDA
+                       libraries built with ``nvcc`` for ``sm_90a``.
 
 Each builds at first use into ``stf_tpu_torch/build/`` (gitignored) and is
 rebuilt when its source is newer than the binary. `build_all` starts every
@@ -32,8 +34,10 @@ _SOURCES = {
     "rans": os.path.join(_PKG_DIR, "ans", "csrc", "rans_coder.cpp"),
     "winattn": os.path.join(_PKG_DIR, "csrc", "window_attention.cu"),
     "lanedecode": os.path.join(_PKG_DIR, "csrc", "lane_decode.cu"),
+    "laneencode": os.path.join(_PKG_DIR, "csrc", "lane_encode.cu"),
+    "layoutpin": os.path.join(_PKG_DIR, "csrc", "layout_pin.cu"),
 }
-CUDA_LIBS = ("winattn", "lanedecode")
+CUDA_LIBS = ("winattn", "lanedecode", "laneencode", "layoutpin")
 
 launch_counts = collections.Counter()
 _loaded = {}

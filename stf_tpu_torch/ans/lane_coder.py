@@ -1,14 +1,18 @@
-"""Interleaved rANS "lane coder": G x 128 parallel rANS32 lanes whose
-decoder runs on the GPU (kernel B2, `csrc/lane_decode.cu`).
+"""Interleaved rANS "lane coder": G x 128 parallel rANS32 lanes, encoded
+and decoded on the GPU.
 
 Port of `stf_tpu/ans/lane_coder.py`: the same stream format (G = 8 row
 groups x K = 128 lanes, 16-bit renormalisation, escapes to a per-group
 int32 side channel, the same packed framing), so streams cross between
 the two packages byte for byte. The host half (tables, native encoder,
-NumPy reference decoder, framing, bank packing) is a copy of the JAX
-module's; the device decoder is a hand-written CUDA kernel in place of the
-Pallas one. Its plain PyTorch version, `lane_decode_plain`, runs the same
-arithmetic row by row and is what `lane_decode` uses for CPU tensors.
+NumPy reference decoder, framing, bank packing, the device encoder's
+stream assembly) is a copy of the JAX module's. Its three Pallas kernels
+become hand-written CUDA kernels, each with a plain PyTorch version that
+the wrapper runs for CPU tensors:
+
+  * `lane_decode`         kernel B2, `csrc/lane_decode.cu`;
+  * `lane_encode_device`  kernel B3, `csrc/lane_encode.cu`;
+  * `layout_pin`          kernel B4, `csrc/layout_pin.cu`.
 """
 
 import ctypes
@@ -301,6 +305,46 @@ def pad_side_banks(stream: LaneStream, rows: int) -> np.ndarray:
     return out.reshape(GROUPS * rows, K)
 
 
+def flat_banks(segments, wr: int, sr: int):
+    """Compact upload form of every segment's decoder inputs: one flat
+    int32 buffer holding, per segment, each group's word pairs (two LE
+    uint16 words per int32, `pack_word_banks`'s element layout), side
+    values and init states back to back, plus an (n_seg, 3, GROUPS) int32
+    offset table (word / side / state start, in int32 elements). The fused
+    decompress rebuilds the kernel's padded (G*rows, K) banks on the device
+    by gather, so the upload is ~stream bytes instead of bucket-padded
+    banks. The buffer ends with max(wr, sr)*K zeros so every fixed-size
+    window stays in bounds; window tails read the next group's data, which
+    the decoder never consumes (it stops at each group's written count).
+    """
+    chunks = []
+    offs = np.zeros((len(segments), 3, GROUPS), np.int64)
+    pos = 0
+    for j, seg in enumerate(segments):
+        wb = np.concatenate([[0], np.cumsum(seg.word_counts)])
+        sb = np.concatenate([[0], np.cumsum(seg.side_counts)])
+        for g in range(GROUPS):
+            w = np.asarray(seg.words[wb[g] : wb[g + 1]], "<u2")
+            pad = np.zeros((w.size + 1) // 2 * 2, "<u2")
+            pad[: w.size] = w
+            wi = pad.view("<i4")
+            chunks.append(wi)
+            offs[j, 0, g] = pos
+            pos += wi.size
+        for g in range(GROUPS):
+            sd = np.asarray(seg.side[sb[g] : sb[g + 1]], np.int32)
+            chunks.append(sd)
+            offs[j, 1, g] = pos
+            pos += sd.size
+        st = np.ascontiguousarray(seg.states, "<u4").view(np.int32)
+        for g in range(GROUPS):
+            offs[j, 2, g] = pos + g * K
+        chunks.append(st.reshape(-1))
+        pos += st.size
+    chunks.append(np.zeros(max(wr, sr) * K, np.int32))
+    return np.concatenate(chunks), offs.astype(np.int32)
+
+
 def words_rows_for(n_words: int) -> int:
     return (int(n_words) + 2 * K - 1) // (2 * K) + 2
 
@@ -432,3 +476,245 @@ def _declare(lib):
 
 
 _native.declare("lanedecode", _declare)
+
+
+# -- device encoder (kernel B3) ---------------------------------------------------
+#
+# Symbols and indexes stay on the device (the codec walk makes them there);
+# only stream-sized bytes cross to the host. Two passes per group: forward,
+# escapes are compacted into the side channel at an ascending cursor, in the
+# (row, lane-ascending) order of the host encoder and the decoder; backward,
+# each row's renormalisation words land at a descending cursor,
+# lane-ascending within the row, which reproduces the host encoder's stream
+# byte for byte.
+
+
+def encode_caps(n: int):
+    """(tg, wcap_rows, scap_rows) for an n-symbol segment. wcap_rows has
+    one pad row past the tg rows that can hold words; scap_rows bounds the
+    side channel at ~1/8 escape rate: a group whose escapes reach past
+    (scap_rows - 2)*K sets its overflow flag (counts[g, 2]) and the caller
+    re-encodes the segment with the host encoder."""
+    rows = (n + K - 1) // K
+    tg = max((rows + GROUPS - 1) // GROUPS, 1)
+    return tg, tg + 1, max(tg // 8, 2) + 4
+
+
+def lane_encode_device_plain(sym, idx, cdf, lengths, offsets, n: int,
+                             pad_sym: int):
+    """Plain PyTorch version of kernel B3, with the kernel's signature and
+    outputs: pass A vectorised (escape ranks are one cumulative sum), pass
+    B one step per row over all G*K lanes, last row first."""
+    dev = sym.device
+    tg, wcap_rows, scap_rows = encode_caps(n)
+    total = GROUPS * tg * K
+    i64 = torch.int64
+
+    def pad(a, fill):
+        out = torch.full((total,), fill, dtype=i64, device=dev)
+        out[:n] = a.reshape(-1).to(i64)
+        return out.reshape(GROUPS, tg * K)
+
+    v = pad(sym, pad_sym)
+    r = pad(idx, 0).clamp_(0, cdf.shape[0] - 1)
+    cdf64 = cdf.to(i64)
+    lens = lengths.to(i64)[r]
+    s = v - offsets.to(i64)[r]
+    esc = (s < 0) | (s >= lens - 2)
+    s = torch.where(esc, lens - 2, s)
+    cum = cdf64[r, s]
+    freq = cdf64[r, s + 1] - cum
+
+    # pass A: a row writes its escapes while its start cursor is at most
+    # (scap_rows - 2)*K, so every write stays inside the bank
+    scap = scap_rows * K
+    limit = (scap_rows - 2) * K
+    ei = esc.to(i64)
+    spos = torch.cumsum(ei, 1) - ei
+    row_start = spos.reshape(GROUPS, tg, K)[:, :, :1].expand(-1, -1, K)
+    keep = esc & (row_start.reshape(GROUPS, -1) <= limit)
+    side = torch.zeros(GROUPS, scap + 1, dtype=i64, device=dev)
+    side.scatter_(1, torch.where(keep, spos, scap), torch.where(keep, v, 0))
+    n_side = ei.sum(1)
+
+    # pass B: reverse interleaved rANS, back-filled word bank
+    wcap = wcap_rows * K
+    words = torch.zeros(GROUPS, wcap + 1, dtype=i64, device=dev)
+    state = torch.full((GROUPS, K), RANS_L, dtype=i64, device=dev)
+    cursor = torch.full((GROUPS, 1), tg * K, dtype=i64, device=dev)
+    cum = cum.reshape(GROUPS, tg, K)
+    freq = freq.reshape(GROUPS, tg, K)
+    for t in range(tg - 1, -1, -1):
+        f, c = freq[:, t], cum[:, t]
+        m = state >= (f << PRECISION)
+        mi = m.to(i64)
+        n_emit = mi.sum(1, keepdim=True)
+        pos = cursor - n_emit + torch.cumsum(mi, 1) - mi
+        words.scatter_(1, torch.where(m, pos, wcap),
+                       torch.where(m, state & 0xFFFF, 0))
+        state = torch.where(m, state >> PRECISION, state)
+        state = ((state // f) << PRECISION) + state % f + c
+        cursor = cursor - n_emit
+
+    counts = torch.zeros(GROUPS, 128, dtype=i64, device=dev)
+    counts[:, 0] = tg * K - cursor[:, 0]
+    counts[:, 1] = n_side
+    counts[:, 2] = (n_side > limit).to(i64)
+    return (
+        words[:, :wcap].reshape(GROUPS * wcap_rows, K).to(torch.int32),
+        side[:, :scap].reshape(GROUPS * scap_rows, K).to(torch.int32),
+        torch.where(state >= 1 << 31, state - (1 << 32), state).to(torch.int32),
+        counts.to(torch.int32),
+    )
+
+
+def lane_encode_device(sym, idx, cdf, lengths, offsets, n: int, pad_sym: int):
+    """Encode an n-symbol segment on the device.
+
+    sym/idx: (n,) int32 symbols and CDF-row indexes in stream order (NHWC
+    C-order of the slice); cdf/lengths/offsets: int32 `table_tensors`;
+    pad_sym: the tables' offsets[0], so padding encodes as the host
+    encoder's does. Returns (words (G*wcap_rows, K) int32, one u16 per
+    cell, each group's last word_counts[g] cells of its first tg rows
+    being its stream; side (G*scap_rows, K) int32, filled from the front;
+    states (G, K) int32 holding the u32 decoder init states; counts
+    (G, 128) int32, columns 0..2 = [word count, side count, overflow]),
+    as `encode_caps` sizes them; unused cells are 0. On CUDA tensors this
+    launches kernel B3; on CPU tensors it runs `lane_encode_device_plain`.
+    """
+    if sym.device.type == "cpu":
+        return lane_encode_device_plain(
+            sym, idx, cdf, lengths, offsets, n, pad_sym
+        )
+    if sym.device.type != "cuda":
+        raise ValueError(
+            f"lane_encode_device runs on cuda or cpu, not {sym.device}"
+        )
+    dev = sym.device
+    R, W = cdf.shape
+    for name, t, shape in (
+        ("sym", sym, (n,)), ("idx", idx, (n,)), ("cdf", cdf, (R, W)),
+        ("lengths", lengths, (R,)), ("offsets", offsets, (R,)),
+    ):
+        _native.check_operand(t, name, torch.int32, dev, shape)
+    tg, wcap_rows, scap_rows = encode_caps(n)
+    words = torch.empty(GROUPS * wcap_rows, K, dtype=torch.int32, device=dev)
+    side = torch.empty(GROUPS * scap_rows, K, dtype=torch.int32, device=dev)
+    states = torch.empty(GROUPS, K, dtype=torch.int32, device=dev)
+    counts = torch.empty(GROUPS, 128, dtype=torch.int32, device=dev)
+    lib = _native.load("laneencode")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stf_lane_encode_device(
+            sym.data_ptr(), idx.data_ptr(), n, tg, GROUPS, int(pad_sym),
+            cdf.data_ptr(), R, W, lengths.data_ptr(), offsets.data_ptr(),
+            words.data_ptr(), wcap_rows, side.data_ptr(), scap_rows,
+            states.data_ptr(), counts.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "lane_encode_device launch failed: "
+            f"{lib.stf_lane_encode_error(rc).decode()}"
+        )
+    _native.launch_counts["lane_encode"] += 1
+    return words, side, states, counts
+
+
+def assemble_from_tails(words_tail, side_tail, states_np, counts_np,
+                        n: int) -> LaneStream:
+    """Host side: the device encoder's outputs (as numpy) -> a LaneStream
+    identical to lane_encode's. words_tail: (G, wb, K) int32, the last wb
+    of each group's first tg word rows; side_tail: (G, sb, K) int32, the
+    first sb side rows of each group. wb and sb need only cover the
+    counts: the codec fetches bucketed tails, and
+    `words.reshape(G, wcap_rows, K)[:, :tg]` with
+    `side.reshape(G, scap_rows, K)` is the whole output."""
+    words, side = [], []
+    wb = words_tail.shape[1]
+    for g in range(GROUPS):
+        wc = int(counts_np[g, 0])
+        sc = int(counts_np[g, 1])
+        wflat = words_tail[g].reshape(-1)
+        words.append(wflat[wb * K - wc:].astype(np.uint16))
+        side.append(side_tail[g].reshape(-1)[:sc].astype(np.int32))
+    return LaneStream(
+        np.concatenate(words),
+        np.asarray([w.size for w in words], np.int64),
+        np.ascontiguousarray(states_np.astype(np.uint32)),
+        np.concatenate(side) if side else np.empty(0, np.int32),
+        np.asarray([s.size for s in side], np.int64),
+        n,
+    )
+
+
+def _declare_encode(lib):
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.stf_lane_encode_device.restype = ctypes.c_int
+    lib.stf_lane_encode_device.argtypes = [
+        vp, vp, i64, i64, i32, i32, vp, i32, i32, vp, vp,
+        vp, i64, vp, i64, vp, vp, vp,
+    ]
+    lib.stf_lane_encode_error.restype = ctypes.c_char_p
+    lib.stf_lane_encode_error.argtypes = [ctypes.c_int]
+
+
+_native.declare("laneencode", _declare_encode)
+
+
+# -- layout pin (kernel B4) ------------------------------------------------------
+
+
+def layout_pin_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4: a densely packed row-major copy
+    with the same bits."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def layout_pin(x: torch.Tensor) -> torch.Tensor:
+    """Bit-exact copy of a strided tensor of up to 4 dims with 1-, 2- or
+    4-byte elements into a fresh densely packed row-major tensor. The
+    fused decompress routes every operand of its walk through it, at the
+    positions where the JAX codec's fused walk pins them, so each
+    operand has one canonical layout in the captured graph and in the
+    eager walk. On CUDA tensors this launches kernel B4; on CPU tensors it
+    runs `layout_pin_plain`."""
+    if x.device.type == "cpu":
+        return layout_pin_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"layout_pin runs on cuda or cpu, not {x.device}")
+    if x.dim() > 4:
+        raise ValueError(f"layout_pin takes up to 4 dims, got {x.dim()}")
+    size = x.element_size()
+    if size not in (1, 2, 4):
+        raise TypeError(f"layout_pin takes 1/2/4-byte elements, not {x.dtype}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    pad = 4 - x.dim()
+    sizes = (ctypes.c_int64 * 4)(*([1] * pad + list(x.shape)))
+    strides = (ctypes.c_int64 * 4)(*([0] * pad + list(x.stride())))
+    lib = _native.load("layoutpin")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.stf_layout_pin(
+            x.data_ptr(), out.data_ptr(), x.numel(), size, sizes, strides,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"layout_pin launch failed: {lib.stf_layout_pin_error(rc).decode()}"
+        )
+    _native.launch_counts["layout_pin"] += 1
+    return out
+
+
+def _declare_pin(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    arr = ctypes.POINTER(ctypes.c_int64)
+    lib.stf_layout_pin.restype = ctypes.c_int
+    lib.stf_layout_pin.argtypes = [vp, vp, i64, ctypes.c_int, arr, arr, vp]
+    lib.stf_layout_pin_error.restype = ctypes.c_char_p
+    lib.stf_layout_pin_error.argtypes = [ctypes.c_int]
+
+
+_native.declare("layoutpin", _declare_pin)

@@ -1,34 +1,52 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
 a small JAX WACNN and the port's WACNN at the same weights."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+from torch import nn
 
 from stf_tpu.models import WACNN as JaxWACNN
-from stf_tpu_torch.models import WACNN
-from stf_tpu_torch.zoo import state_dict_from_jax
+from stf_tpu.zoo.torch_import import import_state_dict
+from stf_tpu_torch.models import WACNN, init_weights
 
 # the size tests/test_lane_codec.py uses
 SMALL = dict(N=32, M=40, num_slices=4, max_support_slices=2)
 
 
-def jax_small(seed: int = 0):
-    """(flax model, params as a nested dict of NumPy arrays)."""
+def pair_from_port(seed: int = 0):
+    """(flax model, params, port model): the port's WACNN with weights
+    drawn by `init_weights` from a seeded generator, and the same weights
+    as flax params. The flax template comes from `jax.eval_shape`, which
+    skips the ~70 s CPU cost of running flax's init.
+
+    `init_weights` draws convs and linears at torch's default scale, where
+    y barely depends on the image (x_hat is the same for every image and
+    every y likelihood ~1), so a comparison would miss a fault in g_a or
+    the hyper path. They are scaled to He-normal size (std
+    sqrt(2/fan_in), flax's conv init), and the synthesis's to half that,
+    which keeps x_hat within a few units, as the fixture built from
+    flax's init did."""
+    port = init_weights(WACNN(**SMALL), torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, m in port.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                m.weight.mul_(math.sqrt(6) / (2 if name.startswith("g_s") else 1))
     model = JaxWACNN(**SMALL)
-    variables = model.init(
-        {"params": jax.random.key(seed), "noise": jax.random.key(seed + 1)},
-        jnp.zeros((1, 64, 64, 3), jnp.float32),
-        training=False,
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.key(0), "noise": jax.random.key(1)},
+        jnp.zeros((1, 64, 64, 3), jnp.float32), training=False,
+    ))["params"]
+    template = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes
     )
-    return model, jax.tree_util.tree_map(np.asarray, variables["params"])
-
-
-def port_small(params):
-    """The port's WACNN loaded (strict) from flax params."""
-    model = WACNN(**SMALL)
-    model.load_state_dict(state_dict_from_jax(params), strict=True)
-    return model.eval()
+    params = import_state_dict("cnn", template, {
+        k: v.detach().numpy() for k, v in port.state_dict().items()
+    })
+    return model, params, port.eval()
 
 
 def flat_leaves(tree, prefix=()):

@@ -5,8 +5,14 @@ Integers must match exactly (symbols, scale indexes, z and lane y-stream
 bytes); the eval forward's floats within atol 1e-4 (the two frameworks'
 CPU convolutions sum in different orders, ~1e-6 per layer, through ~60
 layers). At this seed no scale index or symbol sits close enough to a
-rounding or table boundary to flip.
+rounding or table boundary to flip. The weights make every output depend
+on the image, and planted faults in g_a, the attention and the hyper path
+each miss that tolerance by more than tenfold (the last two tests). At
+torch's default init scale none of that held: x_hat was the same for
+both images, and every y likelihood was ~1.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -14,26 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import jax_small, port_small, smooth_images
+from _torch_port import pair_from_port, smooth_images
 from stf_tpu.models import Codec as JaxCodec
 from stf_tpu_torch.models import Codec
+from torch import nn
 
 
 @pytest.fixture(scope="module")
 def setup():
-    jmodel, params = jax_small(seed=11)
-    # flax's he-normal init drives the random synthesis (IGDN) to outputs
-    # of ~250, where f32 rounding alone exceeds 1e-4; halved synthesis
-    # kernels keep x_hat in image range, as trained weights do
-    params = jax.tree_util.tree_map_with_path(
-        lambda p, a: a * 0.5 if p[0].key == "g_s" and p[-1].key == "kernel"
-        else a,
-        params,
-    )
-    port = port_small(params)
+    jmodel, params, port = pair_from_port(seed=11)
     x = smooth_images(2, 64, 64, seed=3)
     jcodec = JaxCodec(jmodel, params, coder="lane")
-    jcodec.fused = False  # the per-slice walk (the port has no fused tier)
+    jcodec.fused = False  # the per-slice walk; test_torch_fused.py: fused
     lane = Codec(port, coder="lane", device="cpu")
     enc = lane.compress(x)
     jenc = jcodec.compress(x)
@@ -41,21 +39,87 @@ def setup():
                 lane=lane, enc=enc, jenc=jenc)
 
 
-def test_eval_forward_matches_jax(setup):
+def _forward_outputs(out):
+    """{name: numpy array} of an eval forward's x_hat and likelihoods."""
+    return {"x_hat": np.asarray(out["x_hat"]),
+            **{k: np.asarray(v) for k, v in out["likelihoods"].items()}}
+
+
+@pytest.fixture(scope="module")
+def forwards(setup):
+    """(JAX eval forward, port eval forward) on the two test images."""
     x = setup["x"].astype(np.float32) / 255.0
-    want = setup["jmodel"].apply(
-        {"params": setup["params"]}, jnp.asarray(x), training=False
-    )
+    want = jax.jit(lambda params, x: setup["jmodel"].apply(
+        {"params": params}, x, training=False
+    ))(setup["params"], jnp.asarray(x))
     with torch.no_grad():
         got = setup["port"](torch.from_numpy(x))
-    np.testing.assert_allclose(
-        got["x_hat"].numpy(), np.asarray(want["x_hat"]), atol=1e-4
-    )
-    for k in ("y", "z"):
-        np.testing.assert_allclose(
-            got["likelihoods"][k].numpy(),
-            np.asarray(want["likelihoods"][k]), atol=1e-4,
+    return _forward_outputs(want), _forward_outputs(got)
+
+
+def test_eval_forward_matches_jax(forwards):
+    want, got = forwards
+    for k in ("x_hat", "y", "z"):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-4, err_msg=k)
+
+
+def test_eval_forward_depends_on_the_image(setup, forwards):
+    """Between the two test images y differs by ~9, x_hat by ~2, the y
+    likelihoods by ~1 and the z likelihoods by ~1e-3, each above the 1e-4
+    tolerance."""
+    with torch.no_grad():
+        y = setup["port"].g_a(
+            torch.from_numpy(setup["x"].astype(np.float32) / 255.0)
+            .permute(0, 3, 1, 2)
         )
+    assert (y[0] - y[1]).abs().max() > 1
+    got = forwards[1]
+    for k, least in (("x_hat", 0.1), ("y", 0.1), ("z", 2e-4)):
+        assert np.abs(got[k][0] - got[k][1]).max() > least, k
+
+
+def _drop_gdn(m):
+    m.g_a[3] = nn.Identity()
+
+
+def _inverse_gdn(m):
+    m.g_a[6].inverse = True
+
+
+def _unshift_attention(m):
+    m.g_a[4].conv_b[0].shift_size = 0
+
+
+def _flip_attention_bias(m):
+    t = m.g_s[0].conv_b[0].attn.relative_position_bias_table
+    t.data = t.data.flip(0)
+
+
+def _swap_hyper_paths(m):
+    m.h_mean_s, m.h_scale_s = m.h_scale_s, m.h_mean_s
+
+
+def _zero_lrp(m):
+    for p in m.lrp_transforms[1].parameters():
+        p.data.zero_()
+
+
+@pytest.mark.parametrize("fault", [
+    _drop_gdn, _inverse_gdn, _unshift_attention, _flip_attention_bias,
+    _swap_hyper_paths, _zero_lrp,
+], ids=lambda f: f.__name__.lstrip("_"))
+def test_eval_forward_comparison_catches_planted_faults(setup, forwards, fault):
+    """A copy of the port with one planted fault misses the JAX forward by
+    more than ten times the 1e-4 tolerance."""
+    port = copy.deepcopy(setup["port"])
+    fault(port)
+    with torch.no_grad():
+        got = _forward_outputs(
+            port(torch.from_numpy(setup["x"].astype(np.float32) / 255.0))
+        )
+    want = forwards[0]
+    worst = max(np.abs(got[k] - want[k]).max() for k in want)
+    assert worst > 1e-3, worst
 
 
 def test_lane_round_trip_equals_host(setup):

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked `cuda`; they skip where torch sees no CUDA device. They
-import no JAX, so on a machine without it they run with
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+fused decompress's graph replays, on the card. Marked `cuda`; they skip
+where torch sees no CUDA device. They import no JAX, so on a machine
+without it they run with
 `python -m pytest --noconftest -q tests/test_torch_cuda.py`."""
 
 import numpy as np
@@ -129,3 +130,150 @@ def test_lane_decode_rejects_bad_inputs(dev, tables):
     bad[4] = args[4].cpu()
     with pytest.raises(ValueError):
         lc.lane_decode(*bad)
+
+
+def _encode_inputs(n, seed, n_escape=0):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 64, n).astype(np.int32)
+    sym = np.rint(rng.normal(0, get_scale_table()[idx] * 0.7)).astype(np.int32)
+    sym[:n_escape] = rng.integers(63, 5000, n_escape)
+    return sym, idx
+
+
+def _encode_both(sym, idx, tables, dev):
+    args = (
+        torch.from_numpy(sym).to(dev), torch.from_numpy(idx).to(dev),
+        *lc.table_tensors(tables, dev), sym.size, int(tables.offsets[0]),
+    )
+    before = _native.launch_counts["lane_encode"]
+    out = lc.lane_encode_device(*args)
+    plain = lc.lane_encode_device_plain(*args)
+    torch.cuda.synchronize()
+    assert _native.launch_counts["lane_encode"] == before + 1
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    return [a.cpu().numpy() for a in out]
+
+
+# one symbol; escapes with n not a multiple of 128; escapes of 2^24 and more
+@pytest.mark.parametrize("case", ["n1", "escapes", "huge_escapes"])
+def test_lane_encode_kernel_matches_host_encoder(dev, tables, case):
+    n, n_escape = {"n1": (1, 1), "escapes": (5077, 300), "huge_escapes": (3000, 4)}[case]
+    sym, idx = _encode_inputs(n, n, n_escape)
+    if case == "huge_escapes":
+        sym[:4] = [1 << 24, -(1 << 24) - 1, (1 << 31) - 1, -(1 << 31)]
+    out = _encode_both(sym, idx, tables, dev)
+    assert not out[3][:, 2].any()
+    tg, wcap_rows, scap_rows = lc.encode_caps(n)
+    got = lc.assemble_from_tails(
+        out[0].reshape(lc.GROUPS, wcap_rows, lc.K)[:, :tg],
+        out[1].reshape(lc.GROUPS, scap_rows, lc.K), out[2], out[3], n,
+    )
+    want = lc.lane_encode(sym, idx, tables)
+    for field in lc.LaneStream._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_lane_encode_kernel_flags_side_overflow(dev, tables):
+    n = 5 * lc.GROUPS * lc.K  # tg = 5: group 0's side channel holds 512
+    sym, idx = _encode_inputs(n, 2)
+    sym[: 5 * lc.K] = 1000
+    out = _encode_both(sym, idx, tables, dev)
+    assert out[3][0, 2] == 1 and not out[3][1:, 2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
+                                   torch.uint8, torch.int8])
+def test_layout_pin_kernel_is_bit_exact(dev, dtype):
+    g = torch.Generator().manual_seed(3)
+    f = torch.randn(3, 7, 11, 5, generator=g)
+    f[0, 0, 0, :3] = torch.tensor([float("nan"), float("inf"), -0.0])
+    f.view(torch.int32)[1, 1, 1, 1] = 0x7FC01234
+    if dtype in (torch.int32, torch.uint8, torch.int8):
+        f = torch.randint(-128, 128, (3, 7, 11, 5), generator=g)
+    x = f.to(dtype).to(dev)
+    for view in (x, x.permute(0, 3, 1, 2)[:, :, 1:6, :3], x.reshape(-1)[:1]):
+        before = _native.launch_counts["layout_pin"]
+        got = lc.layout_pin(view)
+        torch.cuda.synchronize()
+        assert _native.launch_counts["layout_pin"] == before + 1
+        assert got.is_contiguous() and got.shape == view.shape
+        want = lc.layout_pin_plain(view)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _pattern(h, w, k=0):
+    """A (2, h, w, 3) uint8 batch: smooth patterns of frequency k + 1."""
+    yy, xx = np.mgrid[0:h, 0:w][:, None, :, :, None] / 64.0
+    img = 0.5 + 0.4 * np.sin(2 * np.pi * (k + 1) * xx) * np.cos(
+        2 * np.pi * (k + 2) * yy + np.arange(6).reshape(2, 1, 1, 3)
+    )
+    return (img * 255).round().astype(np.uint8)
+
+
+def test_consecutive_fused_decompresses_are_independent(dev):
+    """Fused decompresses of three different streams: each x_hat equals
+    its own per-slice decode, and an earlier result survives the later
+    replays (outputs are cloned out of the graph's static buffers). At
+    1024 symbols a slice every stream has the same bank buckets, so at
+    least two of the three replay one graph. Full width (B1 has
+    instances for WACNN's head widths only), 64x64 images."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model("cnn", seed=0)
+    with torch.no_grad():
+        # at seed weights y barely depends on the image; a larger last
+        # analysis conv makes the three streams differ
+        model.g_a[7].weight.mul_(100)
+    codec = Codec(model, coder="lane", device=dev)
+    encs = [codec.compress(_pattern(64, 64, k)) for k in range(3)]
+    assert len({e["strings"][0][0] for e in encs}) == 3
+    fused = [codec.decompress(e["strings"], e["shape"]) for e in encs]
+    kept = fused[1]["x_hat"].clone()
+    codec.fused = False
+    walks = [codec.decompress(e["strings"], e["shape"]) for e in encs]
+    for f, w, e in zip(fused, walks, encs):
+        assert torch.equal(f["x_hat"], w["x_hat"])
+        for s, d in zip(e["symbols"], f["symbols"]):
+            assert torch.equal(s, d)
+    assert torch.equal(fused[1]["x_hat"], kept)
+    assert not torch.equal(fused[0]["x_hat"], fused[1]["x_hat"])
+
+
+def test_fused_graphs_share_one_pool_and_stay_bounded(dev):
+    """Fused decompresses of streams of six geometries, more than the
+    codec keeps graphs for. The graphs share one memory pool, so the five
+    later captures (each no larger than the first) reuse what the first
+    one's intermediates held: together they reserve less device memory
+    than the first decompress did. Without the shared pool each would
+    reserve its own. Reserved memory is read after `empty_cache()`, so
+    only live tensors and graph pools count (a capture empties the cache
+    too). The first stream, whose graph was dropped, decodes again
+    (recaptured) to its per-slice walk's x_hat."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.models.codec import _GRAPH_CACHE
+    from stf_tpu_torch.zoo import create_model
+
+    codec = Codec(create_model("cnn", seed=0), coder="lane", device=dev)
+    sizes = [(128, 128), (64, 192), (192, 64), (128, 64), (64, 128), (64, 64)]
+    encs = [codec.compress(_pattern(h, w)) for h, w in sizes]
+
+    def settled():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    reserved = [settled()]
+    for e in encs:
+        codec.decompress(e["strings"], e["shape"])
+        reserved.append(settled())
+    assert len(codec._graphs) == _GRAPH_CACHE
+    first, later = reserved[1] - reserved[0], reserved[-1] - reserved[1]
+    print(f"reserved MiB by decompress: {[r / 2**20 for r in reserved]}")
+    assert later < first, (first, later)
+    again = codec.decompress(encs[0]["strings"], encs[0]["shape"])
+    assert len(codec._graphs) == _GRAPH_CACHE
+    codec.fused = False
+    walk = codec.decompress(encs[0]["strings"], encs[0]["shape"])
+    assert torch.equal(again["x_hat"], walk["x_hat"])

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import SMALL, flat_leaves, jax_small
+from _torch_port import SMALL, flat_leaves, pair_from_port
 from stf_tpu.zoo.torch_import import import_state_dict
 from stf_tpu.zoo.torch_import import strip_prefixes as jax_strip_prefixes
 from stf_tpu_torch.models import WACNN
@@ -13,7 +13,7 @@ from stf_tpu_torch.zoo import create_model, state_dict_from_jax, strip_prefixes
 
 @pytest.fixture(scope="module")
 def params():
-    return jax_small(seed=3)[1]
+    return pair_from_port(seed=3)[1]
 
 
 def test_jax_params_load_strict_and_round_trip(params):
