@@ -10,16 +10,19 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the four CUDA kernels (nvcc, sm_90a) and the rANS library from
      the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
-     WACNN's two attention geometries for batch 2 with shift labels;
+     WACNN's two attention geometries for batch 2 with shift labels, two
+     launches bit-equal, timed beside SDPA with the same mask;
   4. kernel B2 (lane-rANS decode) against its plain version and the
      encoded symbols, on a seeded 1,179,648-symbol stream with 1% escapes
      (one Kodak-size slice at batch 24);
   5. kernel B3 (lane-rANS encode) on the same stream: its stream must
      equal the native host encoder's field by field, and its outputs the
      plain version's;
-  6. kernel B4 (layout pin) on the fused decode's operands (a cropped
-     f32 view, a permuted i32 view) and odd-sized uint8 and bf16 tensors:
-     bytes equal to the plain version's;
+  6. kernel B4 (layout pin) on each of its paths: the fused decode's
+     operand kinds (packed mu, NHWC-as-NCHW rv i32 and z_hat f32), a
+     cropped lm view (the rows path), and odd uint8, bf16, stride-0 and
+     misaligned views: bytes equal to the plain version's, the path the
+     planner picks, each timed beside x.contiguous();
   7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
      uint8 images with coder="lane" (y encoded by B3; fused and per-slice
@@ -27,12 +30,18 @@ Phases (any failure exits non-zero; nothing is caught):
      lane encoder's on the same symbols, symbols and x_hat must agree
      across the paths, and each kernel's launch count must match the path
      (compress: 10 B3 launches; fused decompress: one graph replay, 10 B2
-     and 32 B4 launches, no hash fallback).
+     and 32 B4 launches, 21 of them on B4's packed path and 11 on its
+     transpose path, no hash fallback).
 
-It prints the kernels' JSON line, then the card's name and power limit as
+It prints each CUDA kernel's registers and spills as ptxas reports them,
+the kernels' JSON line, then the card's name and power limit as
 nvidia-smi gives them, and last one JSON line {"ok": true, "device": ...}.
-Times are CUDA-event means (kernels) or host clocks around synchronised
-work (codec); bounds use the H100 SXM data-sheet rates (3.35 TB/s,
+Kernel times are CUDA-event means: B1's and B4's (and their plain
+versions' and PyTorch calls') over replays of a CUDA graph of many calls,
+their device time as the fused decompress runs them, with the eager
+per-call time (which for a small kernel is its Python wrapper's) beside
+them; B2's and B3's over eager calls. Codec times are host clocks
+around synchronised work; bounds use the H100 SXM data-sheet rates (3.35 TB/s,
 67 TFLOP/s f32 without tensor cores).
 """
 
@@ -92,6 +101,36 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, replays=5):
+    """Device milliseconds per call: `iters` calls captured into one CUDA
+    graph, replayed `replays` times between CUDA events after a warm-up
+    replay. This is a kernel's time without the host's dispatch, as the
+    fused decompress's graph runs it; `cuda_ms` of a call that launches
+    one small kernel measures its Python wrapper instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def bound(nbytes, ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the f32 rate."""
@@ -123,9 +162,12 @@ def phase_attention(dev):
         out = ac.window_attention(qkv, bias, labels, ws, scale)
         plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
         torch.cuda.synchronize()
+        again = ac.window_attention(qkv, bias, labels, ws, scale)
         err = (out - plain).abs().max().item()
         if not err <= ATTN_TOL:
             raise AssertionError(f"B1 ws={ws}: max abs err {err} > {ATTN_TOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"B1 ws={ws}: two launches differ")
         q, k, v = ac.partition_qkv(qkv, ws, nh)
         nW = labels.shape[0]
         mask = (bias[None, None] + ac.shift_penalty(labels)[None, :, None])
@@ -134,17 +176,21 @@ def phase_attention(dev):
             q, k, v, attn_mask=mask, scale=scale
         )
         lib_err = (ac.unpartition(sdpa(), BATCH, h, w, ws) - out).abs().max().item()
-        ms = cuda_ms(lambda: ac.window_attention(qkv, bias, labels, ws, scale), 50)
-        plain_ms = cuda_ms(
-            lambda: ac.window_attention_plain(qkv, bias, labels, ws, scale), 10
+        kernel = lambda: ac.window_attention(qkv, bias, labels, ws, scale)  # noqa: E731
+        ms = graph_ms(kernel, 20)
+        eager_ms = cuda_ms(kernel, 50)
+        plain_ms = graph_ms(
+            lambda: ac.window_attention_plain(qkv, bias, labels, ws, scale), 5
         )
-        lib_ms = cuda_ms(sdpa, 50)
+        lib_ms = graph_ms(sdpa, 20)
         nbytes = (qkv.numel() + out.numel() + bias.numel() + labels.numel()) * 4
         ops = 4 * N * N * hd * BATCH * nW * nh
         bound_ms, bound_by = bound(nbytes, ops)
         name = f"window_attention_ws{ws}_hd{hd}"
         print(f"B1 {name}: qkv {tuple(qkv.shape)} max_abs_err {err:.3g} "
-              f"(sdpa {lib_err:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"deterministic "
+              f"(sdpa {lib_err:.3g}) kernel {ms:.4f} ms (eager per call "
+              f"{eager_ms:.4f} ms) plain {plain_ms:.4f} ms "
               f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
         rows.append(dict(
             name=name, route="cuda",
@@ -286,47 +332,76 @@ def phase_lane_encode(dev):
 
 
 def phase_layout_pin(dev):
-    """B4 vs its plain version on the fused decode's operands; timed
-    against x.contiguous() on the cropped latent-means view."""
+    """B4 against its plain version on each of its paths. The fused
+    decode's operand kinds (packed, transpose) each get a kernels row,
+    timed against x.contiguous(); the rows path, which the decode does not
+    take (its lm/ls crops keep every element), is timed and printed."""
     import torch
 
+    from stf_tpu_torch import _native
     from stf_tpu_torch.ans import lane_coder as lc
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    lm = torch.randn(BATCH, 320, 36, 52, device=dev, generator=gen)
-    cases = {
-        "lm (2,320,32,48) f32 cropped": lm[:, :, :32, :48],
-        "rv (2,32,32,48) i32 permuted": torch.randint(
-            -99, 99, (BATCH, 32, 48, 32), device=dev, generator=gen,
-            dtype=torch.int32).permute(0, 3, 1, 2),
-        "(3,7,11,5) uint8": torch.randint(
+    randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    rv = torch.randint(-99, 99, (BATCH, 32, 48, 32), device=dev, generator=gen,
+                       dtype=torch.int32)
+    bf16 = randn(13, 129).to(torch.bfloat16)
+    # (row name or None, operand, view, the path pin_plan must pick)
+    cases = [
+        ("layout_pin_packed", "mu (2,32,32,48) f32 packed",
+         randn(BATCH, 32, 32, 48), "packed"),
+        ("layout_pin_transpose", "rv (2,32,32,48) i32 NHWC as NCHW",
+         rv.permute(0, 3, 1, 2), "transpose"),
+        ("layout_pin_transpose_zhat", "z_hat (2,192,8,12) f32 NHWC as NCHW",
+         randn(BATCH, 8, 12, 192).permute(0, 3, 1, 2), "transpose"),
+        (None, "lm (2,320,32,48) f32 cropped",
+         randn(BATCH, 320, 36, 52)[:, :, :32, :48], "rows"),
+        (None, "(3,7,11,5) uint8", torch.randint(
             0, 256, (3, 7, 11, 5), device=dev, generator=gen,
-            dtype=torch.int32).to(torch.uint8),
-        "(13,129) bf16": torch.randn(
-            13, 129, device=dev, generator=gen).to(torch.bfloat16),
-    }
-    for name, x in cases.items():
+            dtype=torch.int32).to(torch.uint8), "packed"),
+        (None, "(13,128) bf16 cropped", bf16[:, 1:], "rows"),
+        (None, "(5,77) uint8 NHWC as NCHW", torch.randint(
+            0, 256, (5, 7, 11, 3), device=dev, generator=gen,
+            dtype=torch.int32).to(torch.uint8).permute(0, 3, 1, 2), "transpose"),
+        (None, "(3,4,5) f32 stride 0", randn(3, 1, 5).expand(3, 4, 5), "general"),
+        (None, "(999,) f32 misaligned", randn(1000)[1:], "packed"),
+    ]
+    counts = _native.launch_counts
+    for _, what, x, kind in cases:
+        before = counts[f"layout_pin_{kind}"]
         got = lc.layout_pin(x)
         want = lc.layout_pin_plain(x)
         torch.cuda.synchronize()
+        if counts[f"layout_pin_{kind}"] != before + 1:
+            plan = lc.pin_plan(x.shape, x.stride(), x.element_size(), x.data_ptr())
+            raise AssertionError(f"B4 {what}: took {plan.kind}, want {kind}")
         if not (got.is_contiguous() and torch.equal(
                 got.view(torch.uint8), want.view(torch.uint8))):
-            raise AssertionError(f"B4 {name}: bytes differ from the plain version")
-    x = cases["lm (2,320,32,48) f32 cropped"]
-    ms = cuda_ms(lambda: lc.layout_pin(x), 100)
-    plain_ms = cuda_ms(lambda: lc.layout_pin_plain(x), 100)
-    lib_ms = cuda_ms(lambda: x.contiguous(), 100)
-    bound_ms, bound_by = bound(2 * x.numel() * x.element_size(), 0)
-    print(f"B4 layout_pin: {len(cases)} operands bit-exact; lm {tuple(x.shape)} "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms contiguous() "
-          f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
-    return [dict(
-        name="layout_pin", route="cuda",
-        source="stf_tpu_torch/csrc/layout_pin.cu",
-        replaces="stf_tpu/ans/lane_coder.py:706",
-        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-    )]
+            raise AssertionError(f"B4 {what}: bytes differ from the plain version")
+    rows = []
+    for name, what, x, kind in cases[:4]:
+        # x.contiguous() of a packed tensor is x itself: clone() copies
+        lib = x.clone if kind == "packed" else x.contiguous
+        ms = graph_ms(lambda: lc.layout_pin(x), 100)
+        eager_ms = cuda_ms(lambda: lc.layout_pin(x), 200)
+        plain_ms = graph_ms(lambda: lc.layout_pin_plain(x), 100)
+        lib_ms = graph_ms(lib, 100)
+        bound_ms, bound_by = bound(2 * x.numel() * x.element_size(), 0)
+        print(f"B4 layout_pin {kind}: {what} kernel {ms:.4f} ms (eager per "
+              f"call {eager_ms:.4f} ms) plain "
+              f"{plain_ms:.4f} ms {'clone' if kind == 'packed' else 'contiguous'}() "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) bound {bound_ms:.4f} ms "
+              f"({bound_by})" + ("" if name else "; not on the main path"))
+        if name:
+            rows.append(dict(
+                name=name, route="cuda",
+                source="stf_tpu_torch/csrc/layout_pin.cu",
+                replaces="stf_tpu/ans/lane_coder.py:706",
+                launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            ))
+    print(f"B4 layout_pin: {len(cases)} views bit-exact, each on its path")
+    return rows
 
 
 def host_lane_stream(codec, enc):
@@ -357,6 +432,7 @@ def phase_codec(dev, smi):
     import torch
 
     from stf_tpu_torch import _native
+    from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.models import Codec
     from stf_tpu_torch.utils import psnr
     from stf_tpu_torch.zoo import create_model
@@ -464,6 +540,15 @@ def phase_codec(dev, smi):
                d.get("layout_pin", 0)]
         if got != expect:
             raise AssertionError(f"{step}: B1/B2/B3/B4 launches {got}, want {expect}")
+    # B4's 32 pins per fused walk by path: z_hat and the S rv are NHWC
+    # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
+    for step, reps in ((first, 2), (fused, 1)):
+        got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
+        want = {"packed": reps * (2 * S + 1), "rows": 0,
+                "transpose": reps * (S + 1), "general": 0}
+        print(f"B4 pins by path in {step}: {got}")
+        if got != want:
+            raise AssertionError(f"{step}: B4 pins by path {got}, want {want}")
 
     pixels = BATCH * HEIGHT * WIDTH
     lane_bytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
@@ -487,6 +572,28 @@ def phase_codec(dev, smi):
     print(f"warm per call ({smi}): "
           + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
     return launches
+
+
+def ptxas_summary(log):
+    """One line per kernel from nvcc's -Xptxas -v output: its mangled
+    name, registers, spill bytes and static shared memory."""
+    import re
+
+    out, name, spills = [], None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            out.append(f"{name}: {m.group(1)} registers, {spills}, static smem "
+                       f"{smem.group(1) if smem else 0} B")
+            name = None
+    return out
 
 
 def main():
@@ -516,6 +623,9 @@ def main():
     _native.build_all(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(_native.CUDA_LIBS))} with nvcc sm_90a, rans with g++)")
+    for lib in _native.CUDA_LIBS:
+        for line in ptxas_summary(_native.build_logs[lib]):
+            print(f"ptxas {lib}: {line}")
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
@@ -524,7 +634,9 @@ def main():
             + phase_lane_encode(dev) + phase_layout_pin(dev))
     launches = phase_codec(dev, smi)
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        # both transpose rows are B4's transpose path
+        counter = row["name"].replace("_transpose_zhat", "_transpose")
+        row["launches"] = launches.get(counter, 0)
         if not row["launches"]:
             raise AssertionError(f"{row['name']} never launched on the main path")
     print(json.dumps({"kernels": rows}))

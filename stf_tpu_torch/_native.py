@@ -16,8 +16,11 @@ compiler at once, so the CUDA builds cost one ``nvcc`` wall time. The rANS
 library builds when ``stf_tpu_torch.ans`` is first imported; the CUDA
 libraries only when a wrapper is about to launch on a CUDA tensor.
 
-`launch_counts` holds one integer per kernel (and per shape for B1): each
-wrapper adds one where it launches its kernel, and nowhere else.
+`launch_counts` holds one integer per kernel (and per shape for B1, per
+path for B4): each wrapper adds one where it launches its kernel, and
+nowhere else. `build_logs` keeps each compiler's output; the CUDA builds
+pass ``-Xptxas -v``, so it lists every kernel's registers, shared memory
+and spills.
 """
 
 import collections
@@ -40,6 +43,7 @@ _SOURCES = {
 CUDA_LIBS = ("winattn", "lanedecode", "laneencode", "layoutpin")
 
 launch_counts = collections.Counter()
+build_logs = {}  # name -> the compiler's output of its last build here
 _loaded = {}
 _declarations = {}
 
@@ -58,8 +62,8 @@ def _command(name: str, out: str):
         return [os.environ.get("CXX", "g++"), "-std=c++17", "-shared",
                 "-fPIC", "-O3", "-DNDEBUG", "-o", out, src]
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-o", out, src]
+            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+            "-fPIC", "-o", out, src]
 
 
 def library_path(name: str) -> str:
@@ -92,6 +96,7 @@ def build_all(names=None, force: bool = False):
     errors = []
     for name, tmp, proc in jobs:
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"{name}: {' '.join(proc.args)}\n{log}")

@@ -16,6 +16,7 @@ the wrapper runs for CPU tensors:
 """
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -664,6 +665,72 @@ _native.declare("laneencode", _declare_encode)
 # -- layout pin (kernel B4) ------------------------------------------------------
 
 
+class PinPlan(NamedTuple):
+    """Kernel B4's path for one operand: the operand's geometry with its
+    size-1 dims dropped and the dims whose strides chain merged (sizes and
+    element strides, outermost first), and the bytes a thread moves at
+    once on the packed and rows paths."""
+
+    kind: str        # "packed", "rows", "transpose" or "general"
+    sizes: tuple
+    strides: tuple
+    word: int
+
+
+PIN_KINDS = ("packed", "rows", "transpose", "general")
+_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+_INT32_MAX = 2**31 - 1
+
+
+def _widest_word(elem_size: int, *byte_counts) -> int:
+    """The largest power of two from elem_size to 16 dividing every count."""
+    word = 16
+    while word > elem_size and any(c % word for c in byte_counts):
+        word //= 2
+    return word
+
+
+def pin_plan(shape, strides, elem_size: int, data_ptr: int) -> PinPlan:
+    """Choose kernel B4's path from an operand's observable geometry:
+    drop size-1 dims, merge neighbouring dims whose strides chain
+    (stride[d] == stride[d + 1] * size[d + 1]), then
+      * packed: one dim of stride 1, a flat copy;
+      * rows: inner stride 1 under strided outer dims (a crop);
+      * transpose: inner stride not 1, the next dim stride 1 (an NHWC
+        tensor viewed as NCHW);
+      * general: anything else (a stride-0 dim, a doubly permuted view,
+        or a grid the other paths cannot launch)."""
+    merged = []
+    for n, s in zip(shape, strides):
+        if n == 1:
+            continue
+        if merged and merged[-1][1] == s * n:
+            merged[-1] = (merged[-1][0] * n, s)
+        else:
+            merged.append((n, s))
+    sizes, strides = (tuple(a) for a in zip(*merged)) if merged else ((1,), (1,))
+    inner = strides[-1]
+    if 0 in strides:
+        kind, word = "general", elem_size
+    elif len(sizes) == 1 and inner == 1:
+        kind, word = "packed", _widest_word(elem_size, data_ptr)
+    elif inner == 1:
+        outer = (1,) * (4 - len(sizes)) + sizes[:-1]
+        fits = outer[0] <= _GRID_YZ and outer[1] * outer[2] <= _INT32_MAX
+        kind = "rows" if fits else "general"
+        word = _widest_word(
+            elem_size, data_ptr, sizes[-1] * elem_size,
+            *(s * elem_size for s in strides[:-1]),
+        ) if fits else elem_size
+    else:
+        outer = sizes[:-2]
+        fits = (len(sizes) >= 2 and strides[-2] == 1
+                and -(-sizes[-2] // 32) <= _GRID_YZ
+                and sizes[-1] <= _INT32_MAX and math.prod(outer) <= _GRID_YZ)
+        kind, word = ("transpose" if fits else "general"), elem_size
+    return PinPlan(kind, sizes, strides, word)
+
+
 def layout_pin_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel B4: a densely packed row-major copy
     with the same bits."""
@@ -676,8 +743,9 @@ def layout_pin(x: torch.Tensor) -> torch.Tensor:
     fused decompress routes every operand of its walk through it, at the
     positions where the JAX codec's fused walk pins them, so each
     operand has one canonical layout in the captured graph and in the
-    eager walk. On CUDA tensors this launches kernel B4; on CPU tensors it
-    runs `layout_pin_plain`."""
+    eager walk. On CUDA tensors this launches kernel B4 along the path
+    `pin_plan` chooses (counted in `launch_counts["layout_pin"]` and
+    `["layout_pin_<kind>"]`); on CPU tensors it runs `layout_pin_plain`."""
     if x.device.type == "cpu":
         return layout_pin_plain(x)
     if x.device.type != "cuda":
@@ -690,29 +758,34 @@ def layout_pin(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    pad = 4 - x.dim()
-    sizes = (ctypes.c_int64 * 4)(*([1] * pad + list(x.shape)))
-    strides = (ctypes.c_int64 * 4)(*([0] * pad + list(x.stride())))
+    if out.data_ptr() % 16:
+        raise ValueError("layout_pin needs a 16-byte aligned output")
+    plan = pin_plan(x.shape, x.stride(), size, x.data_ptr())
+    pad = 4 - len(plan.sizes)
+    sizes = (ctypes.c_int64 * 4)(*((1,) * pad + plan.sizes))
+    strides = (ctypes.c_int64 * 4)(*((0,) * pad + plan.strides))
     lib = _native.load("layoutpin")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.stf_layout_pin(
-            x.data_ptr(), out.data_ptr(), x.numel(), size, sizes, strides,
-            stream,
+            x.data_ptr(), out.data_ptr(), PIN_KINDS.index(plan.kind), size,
+            plan.word, sizes, strides, stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"layout_pin launch failed: {lib.stf_layout_pin_error(rc).decode()}"
+            f"layout_pin launch failed ({plan}): "
+            f"{lib.stf_layout_pin_error(rc).decode()}"
         )
     _native.launch_counts["layout_pin"] += 1
+    _native.launch_counts[f"layout_pin_{plan.kind}"] += 1
     return out
 
 
 def _declare_pin(lib):
-    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_int64)
     lib.stf_layout_pin.restype = ctypes.c_int
-    lib.stf_layout_pin.argtypes = [vp, vp, i64, ctypes.c_int, arr, arr, vp]
+    lib.stf_layout_pin.argtypes = [vp, vp, ci, ci, ci, arr, arr, vp]
     lib.stf_layout_pin_error.restype = ctypes.c_char_p
     lib.stf_layout_pin_error.argtypes = [ctypes.c_int]
 

@@ -7,90 +7,308 @@
 // so every operand of the fused decode walk had the same buffer layout as
 // in the per-slice programs, and the bf16 matmuls consuming it summed in
 // the same order. It is not a no-op on this card either:
-//   * the port's `hyper_synthesize` returns cropped views
-//     ([:, :, :h, :w], models/base.py) and the decoder's symbols arrive as
-//     NHWC tensors viewed as NCHW; the memory format of a convolution's
-//     operand decides cuDNN's algorithm and so its summation order;
+//   * the decoder's symbols arrive as NHWC tensors viewed as NCHW, and
+//     `hyper_synthesize` returns views ([:, :, :h, :w], models/base.py);
+//     the memory format of a convolution's operand decides cuDNN's
+//     algorithm and so its summation order;
 //   * the fused decompress captures its walk into one CUDA graph, and the
 //     pin gives every operand of that walk the same canonical layout in
 //     the graph as in the eager per-slice walk, which is what it did for
 //     XLA on the TPU.
-// Of the 32 pins per fused decompress (WACNN, 10 slices), 13 change
-// strides on this card: z_hat (an NHWC view of the uploaded buffer), lm
-// and ls (cropped views) and the 10 rv (NHWC symbols viewed as NCHW; the
-// pin is their only copy). The other 19, the first mu and each slice's
-// mu and y_prev, copy tensors that convolutions already wrote packed;
-// they are kept only to pin where the JAX walk pins.
-// Elements of 1, 2 or 4 bytes move as unsigned integers of that width, so
-// NaN payloads and -0.0 keep their bits. Up to 4 dims (leading dims padded
-// with size 1).
+// Of the 32 pins per fused decompress (WACNN, 10 slices), 11 change
+// strides: z_hat (an NHWC view of the uploaded buffer) and the 10 rv (NHWC
+// symbols viewed as NCHW; the pin is their only copy). The other 21 copy
+// packed tensors: lm and ls, whose crop keeps every element because the
+// decoder's y_shape is the hyper output's 4 x z (so the [:h, :w] view has
+// packed strides at every image size), the first mu, and each slice's mu
+// and y_prev, which convolutions wrote packed; those pins only keep JAX's
+// positions. `chip_smoke.py` phase 7 counts the 32 by path (21 packed,
+// 11 transpose per replay, measured on an H100).
 //
 // What bounds it on an H100: bytes (each element read once, written once)
-// and, at the fused decode's sizes (at most 3.9 MB), the launch itself.
-// The design: one thread per output element in a grid-stride loop, so the
-// writes are coalesced; the source offset comes from the element's 4-d
-// coordinates and the given strides. No shared memory, no atomics.
+// and, below about 1 MB, the launch itself. The host-side planner
+// (`pin_plan`, ans/lane_coder.py) drops size-1 dims, merges dims whose
+// strides chain, and picks one of four paths from the merged geometry:
+//   * packed (one dim, stride 1): a flat copy in the widest word (up to
+//     16 B) that the source pointer allows, then a byte tail;
+//   * rows (inner stride 1, strided outer dims, as in a crop): each row is
+//     a run of words (16 B where every row start and the row length allow
+//     it); a block copies several short rows, its outermost dim comes from
+//     blockIdx.y and the rest from one 32-bit division per row;
+//   * transpose (inner stride != 1, the next dim stride 1: an NHWC tensor
+//     viewed as NCHW): 32 x 32 tiles through shared memory with a padding
+//     column against bank conflicts, reads coalesced along the source's
+//     unit-stride dim and writes along the output's, outer dims in
+//     blockIdx.z;
+//   * general (anything else, e.g. an expanded stride-0 or doubly permuted
+//     view): one thread per output element, the source offset from its
+//     4-d coordinates, in 32-bit arithmetic when the tensor allows it.
+// Elements move as unsigned words of their width or wider, so NaN payloads
+// and -0.0 keep their bits. No atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-struct Geometry {
-  int64_t size[4];
-  int64_t stride[4];  // in elements
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 16;
+
+enum Kind { kPacked = 0, kRows = 1, kTranspose = 2, kGeneral = 3 };
+
+// -- packed ----------------------------------------------------------------
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+pin_packed(const W* __restrict__ src, W* __restrict__ dst, int64_t nw,
+           const uint8_t* __restrict__ src_tail, uint8_t* __restrict__ dst_tail,
+           int tail_bytes) {
+  const int64_t first = blockIdx.x * (int64_t)kThreads + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = first; i < nw; i += step) dst[i] = src[i];
+  if (first < tail_bytes) dst_tail[first] = src_tail[first];
+}
+
+template <typename W>
+int launch_packed(const void* src, void* dst, int64_t nbytes,
+                  cudaStream_t stream) {
+  const int64_t nw = nbytes / (int64_t)sizeof(W);
+  const int tail = (int)(nbytes - nw * (int64_t)sizeof(W));
+  int64_t blocks = (nw + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  pin_packed<W><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const W*)src, (W*)dst, nw, (const uint8_t*)src + nw * sizeof(W),
+      (uint8_t*)dst + nw * sizeof(W), tail);
+  return (int)cudaGetLastError();
+}
+
+// -- rows ------------------------------------------------------------------
+
+struct RowsGeo {
+  int64_t s0, s1, s2;  // outer strides, in words
+  int o1, o2;          // outer sizes below blockIdx.y's
+  int lw;              // row length, in words
+  int tpr, rpb;        // threads per row, rows per block
+};
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+pin_rows(const W* __restrict__ src, W* __restrict__ dst, RowsGeo g) {
+  const int rib = threadIdx.x / g.tpr;
+  const int col = threadIdx.x - rib * g.tpr;
+  const int o12 = g.o1 * g.o2;
+  const int r = blockIdx.x * g.rpb + rib;  // row within this y slice
+  if (rib >= g.rpb || r >= o12) return;
+  const int i1 = r / g.o2;
+  const int i2 = r - i1 * g.o2;
+  const W* s = src + blockIdx.y * g.s0 + i1 * g.s1 + i2 * g.s2;
+  W* d = dst + ((int64_t)blockIdx.y * o12 + r) * g.lw;
+  for (int c = col; c < g.lw; c += g.tpr) d[c] = s[c];
+}
+
+template <typename W>
+int launch_rows(const void* src, void* dst, int esize, const int64_t* sizes,
+                const int64_t* strides, cudaStream_t stream) {
+  const int64_t w = sizeof(W) / esize;  // elements per word
+  RowsGeo g;
+  g.s0 = strides[0] / w;
+  g.s1 = strides[1] / w;
+  g.s2 = strides[2] / w;
+  g.o1 = (int)sizes[1];
+  g.o2 = (int)sizes[2];
+  g.lw = (int)(sizes[3] / w);
+  g.tpr = g.lw >= kThreads / 2 ? kThreads : g.lw;
+  g.rpb = kThreads / g.tpr;
+  const int64_t o12 = sizes[1] * sizes[2];
+  dim3 grid((unsigned)((o12 + g.rpb - 1) / g.rpb), (unsigned)sizes[0]);
+  pin_rows<W><<<grid, kThreads, 0, stream>>>((const W*)src, (W*)dst, g);
+  return (int)cudaGetLastError();
+}
+
+// -- transpose -------------------------------------------------------------
+
+struct TransGeo {
+  int64_t s0, s1, sk;  // outer strides and the inner dim's, in elements
+  int o1;              // outer size below the first
+  int m, k;            // the unit-stride dim and the inner dim
 };
 
 template <typename T>
-__global__ void layout_pin_kernel(const T* __restrict__ src,
-                                  T* __restrict__ dst, int64_t n,
-                                  Geometry geo) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t rem = i, off = 0;
+__global__ void __launch_bounds__(kThreads)
+pin_transpose(const T* __restrict__ src, T* __restrict__ dst, TransGeo g) {
+  __shared__ T tile[32][33];
+  const int z = blockIdx.z;
+  const int i0 = z / g.o1, i1 = z - i0 * g.o1;
+  const T* s = src + i0 * g.s0 + i1 * g.s1;
+  T* d = dst + (int64_t)z * g.m * g.k;
+  const int m0 = blockIdx.y * 32, k0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int j = 0; j < 32; j += 8) {
+    const int k = k0 + ty + j, m = m0 + tx;
+    if (k < g.k && m < g.m) tile[ty + j][tx] = s[m + k * g.sk];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 32; j += 8) {
+    const int m = m0 + ty + j, k = k0 + tx;
+    if (m < g.m && k < g.k) d[(int64_t)m * g.k + k] = tile[tx][ty + j];
+  }
+}
+
+template <typename T>
+int launch_transpose(const void* src, void* dst, const int64_t* sizes,
+                     const int64_t* strides, cudaStream_t stream) {
+  TransGeo g;
+  g.s0 = strides[0];
+  g.s1 = strides[1];
+  g.sk = strides[3];
+  g.o1 = (int)sizes[1];
+  g.m = (int)sizes[2];
+  g.k = (int)sizes[3];
+  dim3 grid((unsigned)((g.k + 31) / 32), (unsigned)((g.m + 31) / 32),
+            (unsigned)(sizes[0] * sizes[1]));
+  pin_transpose<T><<<grid, dim3(32, 8), 0, stream>>>((const T*)src, (T*)dst,
+                                                     g);
+  return (int)cudaGetLastError();
+}
+
+// -- general ---------------------------------------------------------------
+
+template <typename I>
+struct Geometry {
+  I size[4];
+  I stride[4];  // in elements
+};
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+pin_general(const T* __restrict__ src, T* __restrict__ dst, I n,
+            Geometry<I> geo) {
+  for (I i = blockIdx.x * (I)kThreads + threadIdx.x; i < n;
+       i += (I)gridDim.x * kThreads) {
+    I rem = i, off = 0;
 #pragma unroll
     for (int d = 3; d >= 0; --d) {
-      const int64_t c = rem % geo.size[d];
-      rem /= geo.size[d];
-      off += c * geo.stride[d];
+      const I q = rem / geo.size[d];
+      off += (rem - q * geo.size[d]) * geo.stride[d];
+      rem = q;
     }
     dst[i] = src[off];
   }
 }
 
-template <typename T>
-int launch(const void* src, void* dst, int64_t n, const Geometry& geo,
-           cudaStream_t stream) {
-  constexpr int kThreads = 256;
+template <typename T, typename I>
+int launch_general_as(const void* src, void* dst, int64_t n,
+                      const int64_t* sizes, const int64_t* strides,
+                      cudaStream_t stream) {
+  Geometry<I> geo;
+  for (int d = 0; d < 4; ++d) {
+    geo.size[d] = (I)sizes[d];
+    geo.stride[d] = (I)strides[d];
+  }
   int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  layout_pin_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)src, (T*)dst, n, geo);
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  pin_general<T, I><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const T*)src, (T*)dst, (I)n, geo);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_general(const void* src, void* dst, const int64_t* sizes,
+                   const int64_t* strides, cudaStream_t stream) {
+  int64_t n = 1, reach = 0;
+  for (int d = 0; d < 4; ++d) {
+    n *= sizes[d];
+    reach += (sizes[d] - 1) * strides[d];
+  }
+  // 32-bit indices when i + blockDim * gridDim and every offset fit
+  if (n + (int64_t)kThreads * kMaxBlocks < INT32_MAX && reach < INT32_MAX)
+    return launch_general_as<T, int32_t>(src, dst, n, sizes, strides, stream);
+  return launch_general_as<T, int64_t>(src, dst, n, sizes, strides, stream);
+}
+
+template <typename T>
+int launch_elementwise(int kind, const void* src, void* dst,
+                       const int64_t* sizes, const int64_t* strides,
+                       cudaStream_t stream) {
+  if (kind == kTranspose)
+    return launch_transpose<T>(src, dst, sizes, strides, stream);
+  return launch_general<T>(src, dst, sizes, strides, stream);
+}
+
+// packed or rows, moving words of W
+template <typename W>
+int launch_words(int kind, const void* src, void* dst, int esize,
+                 const int64_t* sizes, const int64_t* strides,
+                 cudaStream_t stream) {
+  if (kind == kPacked)
+    return launch_packed<W>(src, dst, sizes[3] * esize, stream);
+  return launch_rows<W>(src, dst, esize, sizes, strides, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Copy the n elements of a (sizes[0..3]) tensor with element strides
-// strides[0..3] from `src` into the packed row-major `dst`. elem_size is
-// 1, 2 or 4. Launches on `stream`, returns cudaGetLastError().
-int stf_layout_pin(const void* src, void* dst, int64_t n, int elem_size,
-                   const int64_t* sizes, const int64_t* strides,
+// Copy a strided tensor from `src` into the packed row-major `dst` along
+// the path `kind` chose by `pin_plan` (0 packed, 1 rows, 2 transpose,
+// 3 general). sizes[0..3] and strides[0..3] (in elements) are the plan's
+// merged geometry with leading dims of size 1: packed holds the element
+// count in sizes[3]; rows is (outer x3, row); transpose is (outer x2, the
+// unit-stride dim, the inner dim). elem_size is 1, 2 or 4 bytes; `word`
+// (packed and rows) the bytes each thread moves at once, a power of two
+// from elem_size to 16 that divides the source pointer and, for rows, the
+// row length and every outer stride in bytes. `dst` is 16-byte aligned.
+// Launches on `stream`, returns cudaGetLastError() (cudaErrorInvalidValue
+// for a geometry that breaks these rules).
+int stf_layout_pin(const void* src, void* dst, int kind, int elem_size,
+                   int word, const int64_t* sizes, const int64_t* strides,
                    void* stream) {
-  Geometry geo;
-  for (int d = 0; d < 4; ++d) {
-    geo.size[d] = sizes[d];
-    geo.stride[d] = strides[d];
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  switch (elem_size) {
-    case 1: return launch<uint8_t>(src, dst, n, geo, st);
-    case 2: return launch<uint16_t>(src, dst, n, geo, st);
-    case 4: return launch<uint32_t>(src, dst, n, geo, st);
+  const bool elem_ok = elem_size == 1 || elem_size == 2 || elem_size == 4;
+  if (!elem_ok) return (int)cudaErrorInvalidValue;
+  const bool word_ok = word >= elem_size && word <= 16 && !(word & (word - 1))
+                       && (uintptr_t)src % word == 0
+                       && (uintptr_t)dst % 16 == 0;
+  bool rows_ok = word_ok && (sizes[3] * elem_size) % word == 0
+                 && sizes[0] <= 65535 && sizes[1] * sizes[2] <= INT32_MAX;
+  for (int d = 0; d < 3 && rows_ok; ++d)
+    rows_ok = (strides[d] * elem_size) % word == 0;
+  switch (kind) {
+    case kRows:
+    case kPacked:
+      if (!word_ok || (kind == kRows && !rows_ok))
+        return (int)cudaErrorInvalidValue;
+#define STF_PIN_WORDS(W) \
+  launch_words<W>(kind, src, dst, elem_size, sizes, strides, st)
+      switch (word) {
+        case 1: return STF_PIN_WORDS(uint8_t);
+        case 2: return STF_PIN_WORDS(uint16_t);
+        case 4: return STF_PIN_WORDS(uint32_t);
+        case 8: return STF_PIN_WORDS(uint2);
+        default: return STF_PIN_WORDS(uint4);
+      }
+#undef STF_PIN_WORDS
+    case kTranspose:
+      if (strides[2] != 1 || (sizes[2] + 31) / 32 > 65535
+          || sizes[0] * sizes[1] > 65535)
+        return (int)cudaErrorInvalidValue;
+      break;
+    case kGeneral:
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  switch (elem_size) {
+    case 1:
+      return launch_elementwise<uint8_t>(kind, src, dst, sizes, strides, st);
+    case 2:
+      return launch_elementwise<uint16_t>(kind, src, dst, sizes, strides, st);
+    default:
+      return launch_elementwise<uint32_t>(kind, src, dst, sizes, strides, st);
+  }
 }
 
 const char* stf_layout_pin_error(int code) {

@@ -86,6 +86,11 @@ def window_attention(qkv, bias, labels, window: int, scale: float):
     check(bias, "bias", torch.float32, dev, (nh, N, N))
     if labels is not None:
         check(labels, "labels", torch.int32, dev, ((H // ws) * (W // ws), N))
+    if qkv.data_ptr() % 16 or bias.data_ptr() % 8:
+        raise ValueError(
+            "qkv must be 16-byte and bias 8-byte aligned (kernel B1 reads "
+            "16-byte runs of qkv and pairs of bias values)"
+        )
     lib = _native.load("winattn")
     if not lib.stf_window_attention_supported(N, C // nh):
         raise ValueError(

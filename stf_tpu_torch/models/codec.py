@@ -177,10 +177,10 @@ class Codec:
         decompress passes `pin=lc.layout_pin`, which copies every operand
         at the positions where the JAX codec's fused walk
         (`_traced_walk`) pins them; the copies change no value. On CUDA
-        the pins of lm/ls (cropped views) and rv (an NHWC tensor viewed as
-        NCHW) give their operands packed NCHW strides; mu and y_prev come
-        packed out of convolutions, and their pins only keep JAX's
-        positions."""
+        the pins of rv (an NHWC tensor viewed as NCHW) give it packed NCHW
+        strides (kernel B4's transpose path); lm/ls (crops of the hyper
+        outputs that keep every element, since y_shape is 4 x z), mu and
+        y_prev come packed, and their pins only keep JAX's positions."""
         model, table = self.model, self._table
         k = model.max_support_slices
         y_hat_slices: List = []

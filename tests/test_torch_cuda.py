@@ -25,13 +25,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _attn_inputs(dev, ws, hd, shifted, hw_windows=(2, 3), seed=0):
+def _attn_inputs(dev, ws, hd, shifted, hw_windows=(2, 3), seed=0, batch=2,
+                 bias_scale=1.0):
     nh, N = 8, ws * ws
     C = nh * hd
     H, W = hw_windows[0] * ws, hw_windows[1] * ws
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(2, H, W, 3 * C, device=dev, generator=g)
-    bias = torch.randn(nh, N, N, device=dev, generator=g)
+    qkv = torch.randn(batch, H, W, 3 * C, device=dev, generator=g)
+    bias = torch.randn(nh, N, N, device=dev, generator=g) * bias_scale
     labels = None
     if shifted:
         labels = torch.from_numpy(
@@ -52,6 +53,26 @@ def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
     assert (out - plain).abs().max().item() <= 1e-5
 
 
+# batch 1; one window; 15 windows (no multiple of the head group or of a
+# tile); the bias x30, logits of about +-100 where a softmax without its
+# max subtracted overflows and the -100 penalty decides whole rows
+@pytest.mark.parametrize("case", ["batch1", "one_window", "odd_windows",
+                                  "bias_x30"])
+@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40)])
+def test_window_attention_kernel_edge_cases(dev, ws, hd, case):
+    kw = {"batch1": dict(batch=1), "one_window": dict(hw_windows=(1, 1)),
+          "odd_windows": dict(hw_windows=(3, 5)),
+          "bias_x30": dict(bias_scale=30.0)}[case]
+    qkv, bias, labels = _attn_inputs(dev, ws, hd, True, seed=7, **kw)
+    out = ac.window_attention(qkv, bias, labels, ws, hd ** -0.5)
+    again = ac.window_attention(qkv, bias, labels, ws, hd ** -0.5)
+    plain = ac.window_attention_plain(qkv, bias, labels, ws, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - plain).abs().max().item() <= 1e-5
+    assert torch.equal(out, again)  # no atomics, a fixed summation order
+
+
 def test_window_attention_rejects_bad_inputs(dev):
     qkv, bias, labels = _attn_inputs(dev, 4, 40, True)
     with pytest.raises(TypeError):
@@ -62,6 +83,9 @@ def test_window_attention_rejects_bad_inputs(dev):
         ac.window_attention(qkv, bias, labels[:1], 4, 0.1)
     with pytest.raises(ValueError, match="no window_attention kernel"):
         ac.window_attention(qkv, bias[:4], labels, 4, 0.1)  # hd 80
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.empty(qkv.numel() + 1, device=dev)
+        ac.window_attention(flat[1:].view(qkv.shape), bias, labels, 4, 0.1)
 
 
 @pytest.fixture(scope="module")
@@ -192,11 +216,25 @@ def test_layout_pin_kernel_is_bit_exact(dev, dtype):
     if dtype in (torch.int32, torch.uint8, torch.int8):
         f = torch.randint(-128, 128, (3, 7, 11, 5), generator=g)
     x = f.to(dtype).to(dev)
-    for view in (x, x.permute(0, 3, 1, 2)[:, :, 1:6, :3], x.reshape(-1)[:1]):
+    big = torch.randn(2, 37, 45, 70, generator=g).to(dtype).to(dev)
+    views = [  # (view, the path pin_plan picks)
+        (x, "packed"),
+        (x.reshape(-1)[:1], "packed"),
+        (x.reshape(-1)[1:], "packed"),  # misaligned for 16-byte words
+        (x[:, 1:6, 2:9, :], "rows"),
+        (big[:, 3:30, :40, 1:65], "rows"),
+        (x.permute(0, 3, 1, 2), "transpose"),
+        (big.permute(0, 3, 1, 2), "transpose"),  # ragged 32 x 32 tiles
+        (x.permute(0, 3, 1, 2)[:, :, 1:6, :3], "general"),
+        (x[:, :1].expand(3, 4, 11, 5), "general"),  # stride 0
+    ]
+    for view, kind in views:
         before = _native.launch_counts["layout_pin"]
+        before_kind = _native.launch_counts[f"layout_pin_{kind}"]
         got = lc.layout_pin(view)
         torch.cuda.synchronize()
         assert _native.launch_counts["layout_pin"] == before + 1
+        assert _native.launch_counts[f"layout_pin_{kind}"] == before_kind + 1
         assert got.is_contiguous() and got.shape == view.shape
         want = lc.layout_pin_plain(view)
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
