@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
      WACNN's two attention geometries for batch 2 with shift labels, two
-     launches bit-equal, timed beside SDPA with the same mask;
+     launches bit-equal, timed beside SDPA with the same mask; with the
+     bias x30, no farther than the f32 plain version from an f64 one;
   4. kernel B2 (lane-rANS decode) against its plain version and the
      encoded symbols, on a seeded 1,179,648-symbol stream with 1% escapes
      (one Kodak-size slice at batch 24);
@@ -19,10 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      equal the native host encoder's field by field, and its outputs the
      plain version's;
   6. kernel B4 (layout pin) on each of its paths: the fused decode's
-     operand kinds (packed mu, NHWC-as-NCHW rv i32 and z_hat f32), a
-     cropped lm view (the rows path), and odd uint8, bf16, stride-0 and
-     misaligned views: bytes equal to the plain version's, the path the
-     planner picks, each timed beside x.contiguous();
+     operands (packed mu and lm, NHWC-as-NCHW rv i32 and z_hat f32), a
+     cropped lm view (the general path), and odd uint8, bf16, stride-0
+     and misaligned views: bytes equal to the plain version's, the path
+     the planner picks; the first five timed beside PyTorch's copy;
   7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
      uint8 images with coder="lane" (y encoded by B3; fused and per-slice
@@ -56,6 +57,9 @@ BATCH, HEIGHT, WIDTH = 2, 512, 768
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ATTN_TOL = 1e-5
+# (feature map, channels, window) of WACNN's g_a/g_s attention blocks at a
+# 512x768 input; 8 heads
+ATTN_GEOMS = (((128, 192), 192, 8), ((32, 48), 320, 4))
 
 
 def smooth_batch(n, h, w, seed):
@@ -149,8 +153,7 @@ def phase_attention(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    # (feature map, channels, window): g_a/g_s blocks at 512x768 input
-    for (h, w), C, ws in (((128, 192), 192, 8), ((32, 48), 320, 4)):
+    for (h, w), C, ws in ATTN_GEOMS:
         nh, N = 8, ws * ws
         hd = C // nh
         scale = hd ** -0.5
@@ -199,7 +202,43 @@ def phase_attention(dev):
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
         ))
+    for ws, err, plain_err, diff in attention_vs_f64(dev, 30.0):
+        print(f"B1 ws={ws}, bias x30 (logits to ~+-100): max abs err against "
+              f"an f64 plain version {err:.3g} (f32 plain version "
+              f"{plain_err:.3g}; kernel against it {diff:.3g})")
+        if not err <= min(ATTN_TOL, plain_err):
+            raise AssertionError(f"B1 ws={ws} bias x30: {err} from f64, plain "
+                                 f"version {plain_err}")
     return rows
+
+
+def attention_vs_f64(dev, bias_scale):
+    """At both geometries (full maps, batch 2, shift labels) with the bias
+    scaled by `bias_scale`: the max abs error of B1 and of the f32 plain
+    version against the plain version computed in f64."""
+    import torch
+
+    from stf_tpu_torch.layers import attention_core as ac
+    from stf_tpu_torch.layers import shifted_window_region_labels
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = []
+    for (h, w), C, ws in ATTN_GEOMS:
+        nh, N = 8, ws * ws
+        scale = (C // nh) ** -0.5
+        qkv = torch.randn(BATCH, h, w, 3 * C, device=dev, generator=gen)
+        bias = torch.randn(nh, N, N, device=dev, generator=gen) * bias_scale
+        labels = torch.from_numpy(
+            shifted_window_region_labels(h, w, ws, ws // 2)
+        ).to(dev)
+        ref = ac.window_attention_plain(qkv.double(), bias.double(), labels,
+                                        ws, scale)
+        out = ac.window_attention(qkv, bias, labels, ws, scale)
+        plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
+        errs.append((ws, (out.double() - ref).abs().max().item(),
+                     (plain.double() - ref).abs().max().item(),
+                     (out - plain).abs().max().item()))
+    return errs
 
 
 def lane_inputs():
@@ -332,10 +371,12 @@ def phase_lane_encode(dev):
 
 
 def phase_layout_pin(dev):
-    """B4 against its plain version on each of its paths. The fused
-    decode's operand kinds (packed, transpose) each get a kernels row,
-    timed against x.contiguous(); the rows path, which the decode does not
-    take (its lm/ls crops keep every element), is timed and printed."""
+    """B4 against its plain version on each of its paths, and timed beside
+    PyTorch's copy on the fused decode's operands. Each main-path path
+    gets one kernels row, timed on the operand that takes it most often
+    (packed: mu, like y_prev; transpose: rv); lm (packed, 3.9 MB), z_hat
+    (transpose) and a cropped lm (general; no pin of the decode is a crop)
+    are timed and printed."""
     import torch
 
     from stf_tpu_torch import _native
@@ -343,26 +384,28 @@ def phase_layout_pin(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     randn = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    u8 = lambda *s: torch.randint(  # noqa: E731
+        0, 256, s, device=dev, generator=gen, dtype=torch.int32).to(torch.uint8)
     rv = torch.randint(-99, 99, (BATCH, 32, 48, 32), device=dev, generator=gen,
                        dtype=torch.int32)
-    bf16 = randn(13, 129).to(torch.bfloat16)
-    # (row name or None, operand, view, the path pin_plan must pick)
+    # (kernels row or None, operand, view, the path pin_plan must pick);
+    # the timed ones first
     cases = [
         ("layout_pin_packed", "mu (2,32,32,48) f32 packed",
          randn(BATCH, 32, 32, 48), "packed"),
+        (None, "lm (2,320,32,48) f32 packed", randn(BATCH, 320, 32, 48),
+         "packed"),
         ("layout_pin_transpose", "rv (2,32,32,48) i32 NHWC as NCHW",
          rv.permute(0, 3, 1, 2), "transpose"),
-        ("layout_pin_transpose_zhat", "z_hat (2,192,8,12) f32 NHWC as NCHW",
+        (None, "z_hat (2,192,8,12) f32 NHWC as NCHW",
          randn(BATCH, 8, 12, 192).permute(0, 3, 1, 2), "transpose"),
-        (None, "lm (2,320,32,48) f32 cropped",
-         randn(BATCH, 320, 36, 52)[:, :, :32, :48], "rows"),
-        (None, "(3,7,11,5) uint8", torch.randint(
-            0, 256, (3, 7, 11, 5), device=dev, generator=gen,
-            dtype=torch.int32).to(torch.uint8), "packed"),
-        (None, "(13,128) bf16 cropped", bf16[:, 1:], "rows"),
-        (None, "(5,77) uint8 NHWC as NCHW", torch.randint(
-            0, 256, (5, 7, 11, 3), device=dev, generator=gen,
-            dtype=torch.int32).to(torch.uint8).permute(0, 3, 1, 2), "transpose"),
+        (None, "lm (2,320,32,48) f32 cropped from (2,320,36,52)",
+         randn(BATCH, 320, 36, 52)[:, :, :32, :48], "general"),
+        (None, "(3,7,11,5) uint8", u8(3, 7, 11, 5), "packed"),
+        (None, "(13,128) bf16 cropped", randn(13, 129).to(torch.bfloat16)[:, 1:],
+         "general"),
+        (None, "(5,77) uint8 NHWC as NCHW", u8(5, 7, 11, 3).permute(0, 3, 1, 2),
+         "transpose"),
         (None, "(3,4,5) f32 stride 0", randn(3, 1, 5).expand(3, 4, 5), "general"),
         (None, "(999,) f32 misaligned", randn(1000)[1:], "packed"),
     ]
@@ -379,19 +422,19 @@ def phase_layout_pin(dev):
                 got.view(torch.uint8), want.view(torch.uint8))):
             raise AssertionError(f"B4 {what}: bytes differ from the plain version")
     rows = []
-    for name, what, x, kind in cases[:4]:
+    for name, what, x, kind in cases[:5]:
         # x.contiguous() of a packed tensor is x itself: clone() copies
-        lib = x.clone if kind == "packed" else x.contiguous
+        lib_name = "clone" if x.is_contiguous() else "contiguous"
         ms = graph_ms(lambda: lc.layout_pin(x), 100)
         eager_ms = cuda_ms(lambda: lc.layout_pin(x), 200)
         plain_ms = graph_ms(lambda: lc.layout_pin_plain(x), 100)
-        lib_ms = graph_ms(lib, 100)
+        lib_ms = graph_ms(getattr(x, lib_name), 100)
         bound_ms, bound_by = bound(2 * x.numel() * x.element_size(), 0)
         print(f"B4 layout_pin {kind}: {what} kernel {ms:.4f} ms (eager per "
-              f"call {eager_ms:.4f} ms) plain "
-              f"{plain_ms:.4f} ms {'clone' if kind == 'packed' else 'contiguous'}() "
+              f"call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms {lib_name}() "
               f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) bound {bound_ms:.4f} ms "
-              f"({bound_by})" + ("" if name else "; not on the main path"))
+              f"({bound_by})" + ("" if kind != "general"
+                                 else "; not on the main path"))
         if name:
             rows.append(dict(
                 name=name, route="cuda",
@@ -544,8 +587,8 @@ def phase_codec(dev, smi):
     # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
     for step, reps in ((first, 2), (fused, 1)):
         got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
-        want = {"packed": reps * (2 * S + 1), "rows": 0,
-                "transpose": reps * (S + 1), "general": 0}
+        want = {"packed": reps * (2 * S + 1), "transpose": reps * (S + 1),
+                "general": 0}
         print(f"B4 pins by path in {step}: {got}")
         if got != want:
             raise AssertionError(f"{step}: B4 pins by path {got}, want {want}")
@@ -634,9 +677,7 @@ def main():
             + phase_lane_encode(dev) + phase_layout_pin(dev))
     launches = phase_codec(dev, smi)
     for row in rows:
-        # both transpose rows are B4's transpose path
-        counter = row["name"].replace("_transpose_zhat", "_transpose")
-        row["launches"] = launches.get(counter, 0)
+        row["launches"] = launches.get(row["name"], 0)
         if not row["launches"]:
             raise AssertionError(f"{row['name']} never launched on the main path")
     print(json.dumps({"kernels": rows}))

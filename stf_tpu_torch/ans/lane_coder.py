@@ -669,25 +669,17 @@ class PinPlan(NamedTuple):
     """Kernel B4's path for one operand: the operand's geometry with its
     size-1 dims dropped and the dims whose strides chain merged (sizes and
     element strides, outermost first), and the bytes a thread moves at
-    once on the packed and rows paths."""
+    once on the packed path (the element size on the others)."""
 
-    kind: str        # "packed", "rows", "transpose" or "general"
+    kind: str        # "packed", "transpose" or "general"
     sizes: tuple
     strides: tuple
     word: int
 
 
-PIN_KINDS = ("packed", "rows", "transpose", "general")
+PIN_KINDS = ("packed", "transpose", "general")
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 _INT32_MAX = 2**31 - 1
-
-
-def _widest_word(elem_size: int, *byte_counts) -> int:
-    """The largest power of two from elem_size to 16 dividing every count."""
-    word = 16
-    while word > elem_size and any(c % word for c in byte_counts):
-        word //= 2
-    return word
 
 
 def pin_plan(shape, strides, elem_size: int, data_ptr: int) -> PinPlan:
@@ -695,11 +687,10 @@ def pin_plan(shape, strides, elem_size: int, data_ptr: int) -> PinPlan:
     drop size-1 dims, merge neighbouring dims whose strides chain
     (stride[d] == stride[d + 1] * size[d + 1]), then
       * packed: one dim of stride 1, a flat copy;
-      * rows: inner stride 1 under strided outer dims (a crop);
       * transpose: inner stride not 1, the next dim stride 1 (an NHWC
         tensor viewed as NCHW);
-      * general: anything else (a stride-0 dim, a doubly permuted view,
-        or a grid the other paths cannot launch)."""
+      * general: anything else (a crop, a stride-0 dim, a doubly permuted
+        view, or a grid the transpose cannot launch)."""
     merged = []
     for n, s in zip(shape, strides):
         if n == 1:
@@ -709,25 +700,15 @@ def pin_plan(shape, strides, elem_size: int, data_ptr: int) -> PinPlan:
         else:
             merged.append((n, s))
     sizes, strides = (tuple(a) for a in zip(*merged)) if merged else ((1,), (1,))
-    inner = strides[-1]
-    if 0 in strides:
-        kind, word = "general", elem_size
-    elif len(sizes) == 1 and inner == 1:
-        kind, word = "packed", _widest_word(elem_size, data_ptr)
-    elif inner == 1:
-        outer = (1,) * (4 - len(sizes)) + sizes[:-1]
-        fits = outer[0] <= _GRID_YZ and outer[1] * outer[2] <= _INT32_MAX
-        kind = "rows" if fits else "general"
-        word = _widest_word(
-            elem_size, data_ptr, sizes[-1] * elem_size,
-            *(s * elem_size for s in strides[:-1]),
-        ) if fits else elem_size
-    else:
-        outer = sizes[:-2]
-        fits = (len(sizes) >= 2 and strides[-2] == 1
-                and -(-sizes[-2] // 32) <= _GRID_YZ
-                and sizes[-1] <= _INT32_MAX and math.prod(outer) <= _GRID_YZ)
-        kind, word = ("transpose" if fits else "general"), elem_size
+    kind, word = "general", elem_size
+    if len(sizes) == 1 and strides[0] == 1:
+        kind = "packed"
+        while word < 16 and data_ptr % (2 * word) == 0:
+            word *= 2
+    elif (len(sizes) >= 2 and strides[-1] != 1 and strides[-2] == 1
+          and 0 not in strides and -(-sizes[-2] // 32) <= _GRID_YZ
+          and sizes[-1] <= _INT32_MAX and math.prod(sizes[:-2]) <= _GRID_YZ):
+        kind = "transpose"
     return PinPlan(kind, sizes, strides, word)
 
 

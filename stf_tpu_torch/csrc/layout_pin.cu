@@ -28,21 +28,24 @@
 // What bounds it on an H100: bytes (each element read once, written once)
 // and, below about 1 MB, the launch itself. The host-side planner
 // (`pin_plan`, ans/lane_coder.py) drops size-1 dims, merges dims whose
-// strides chain, and picks one of four paths from the merged geometry:
-//   * packed (one dim, stride 1): a flat copy in the widest word (up to
-//     16 B) that the source pointer allows, then a byte tail;
-//   * rows (inner stride 1, strided outer dims, as in a crop): each row is
-//     a run of words (16 B where every row start and the row length allow
-//     it); a block copies several short rows, its outermost dim comes from
-//     blockIdx.y and the rest from one 32-bit division per row;
+// strides chain, and picks one of three paths from the merged geometry:
+//   * packed (one dim, stride 1; 21 of the 32 pins): a flat copy in the
+//     widest word (up to 16 B) that the source pointer allows, then a
+//     byte tail;
 //   * transpose (inner stride != 1, the next dim stride 1: an NHWC tensor
-//     viewed as NCHW): 32 x 32 tiles through shared memory with a padding
-//     column against bank conflicts, reads coalesced along the source's
-//     unit-stride dim and writes along the output's, outer dims in
-//     blockIdx.z;
-//   * general (anything else, e.g. an expanded stride-0 or doubly permuted
-//     view): one thread per output element, the source offset from its
-//     4-d coordinates, in 32-bit arithmetic when the tensor allows it.
+//     viewed as NCHW; the other 11): 32 x 32 tiles through shared memory
+//     with a padding column against bank conflicts, reads coalesced along
+//     the source's unit-stride dim and writes along the output's, outer
+//     dims in blockIdx.z;
+//   * general (anything else: a crop, an expanded stride-0 or a doubly
+//     permuted view; no pin of the fused decompress): one thread per
+//     output element, the source offset from its 4-d coordinates, in
+//     32-bit arithmetic when the tensor allows it.
+// Each of the two fast paths beats the general path on every main-path
+// operand that takes it, in device time on an H100, and stays within
+// 1.25x of PyTorch's copy of the same operand (tools/compare_layout_pin.py,
+// PERF.md section 6); no crop reaches the kernel on the main path, so
+// crops take the general path.
 // Elements move as unsigned words of their width or wider, so NaN payloads
 // and -0.0 keep their bits. No atomics.
 
@@ -54,7 +57,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 
-enum Kind { kPacked = 0, kRows = 1, kTranspose = 2, kGeneral = 3 };
+enum Kind { kPacked = 0, kTranspose = 1, kGeneral = 2 };
 
 // -- packed ----------------------------------------------------------------
 
@@ -80,49 +83,6 @@ int launch_packed(const void* src, void* dst, int64_t nbytes,
   pin_packed<W><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const W*)src, (W*)dst, nw, (const uint8_t*)src + nw * sizeof(W),
       (uint8_t*)dst + nw * sizeof(W), tail);
-  return (int)cudaGetLastError();
-}
-
-// -- rows ------------------------------------------------------------------
-
-struct RowsGeo {
-  int64_t s0, s1, s2;  // outer strides, in words
-  int o1, o2;          // outer sizes below blockIdx.y's
-  int lw;              // row length, in words
-  int tpr, rpb;        // threads per row, rows per block
-};
-
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-pin_rows(const W* __restrict__ src, W* __restrict__ dst, RowsGeo g) {
-  const int rib = threadIdx.x / g.tpr;
-  const int col = threadIdx.x - rib * g.tpr;
-  const int o12 = g.o1 * g.o2;
-  const int r = blockIdx.x * g.rpb + rib;  // row within this y slice
-  if (rib >= g.rpb || r >= o12) return;
-  const int i1 = r / g.o2;
-  const int i2 = r - i1 * g.o2;
-  const W* s = src + blockIdx.y * g.s0 + i1 * g.s1 + i2 * g.s2;
-  W* d = dst + ((int64_t)blockIdx.y * o12 + r) * g.lw;
-  for (int c = col; c < g.lw; c += g.tpr) d[c] = s[c];
-}
-
-template <typename W>
-int launch_rows(const void* src, void* dst, int esize, const int64_t* sizes,
-                const int64_t* strides, cudaStream_t stream) {
-  const int64_t w = sizeof(W) / esize;  // elements per word
-  RowsGeo g;
-  g.s0 = strides[0] / w;
-  g.s1 = strides[1] / w;
-  g.s2 = strides[2] / w;
-  g.o1 = (int)sizes[1];
-  g.o2 = (int)sizes[2];
-  g.lw = (int)(sizes[3] / w);
-  g.tpr = g.lw >= kThreads / 2 ? kThreads : g.lw;
-  g.rpb = kThreads / g.tpr;
-  const int64_t o12 = sizes[1] * sizes[2];
-  dim3 grid((unsigned)((o12 + g.rpb - 1) / g.rpb), (unsigned)sizes[0]);
-  pin_rows<W><<<grid, kThreads, 0, stream>>>((const W*)src, (W*)dst, g);
   return (int)cudaGetLastError();
 }
 
@@ -238,59 +198,42 @@ int launch_elementwise(int kind, const void* src, void* dst,
   return launch_general<T>(src, dst, sizes, strides, stream);
 }
 
-// packed or rows, moving words of W
-template <typename W>
-int launch_words(int kind, const void* src, void* dst, int esize,
-                 const int64_t* sizes, const int64_t* strides,
-                 cudaStream_t stream) {
-  if (kind == kPacked)
-    return launch_packed<W>(src, dst, sizes[3] * esize, stream);
-  return launch_rows<W>(src, dst, esize, sizes, strides, stream);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Copy a strided tensor from `src` into the packed row-major `dst` along
-// the path `kind` chose by `pin_plan` (0 packed, 1 rows, 2 transpose,
-// 3 general). sizes[0..3] and strides[0..3] (in elements) are the plan's
-// merged geometry with leading dims of size 1: packed holds the element
-// count in sizes[3]; rows is (outer x3, row); transpose is (outer x2, the
-// unit-stride dim, the inner dim). elem_size is 1, 2 or 4 bytes; `word`
-// (packed and rows) the bytes each thread moves at once, a power of two
-// from elem_size to 16 that divides the source pointer and, for rows, the
-// row length and every outer stride in bytes. `dst` is 16-byte aligned.
-// Launches on `stream`, returns cudaGetLastError() (cudaErrorInvalidValue
-// for a geometry that breaks these rules).
+// the path `kind` chosen by `pin_plan` (0 packed, 1 transpose, 2 general).
+// sizes[0..3] and strides[0..3] (in elements) are the plan's merged
+// geometry with leading dims of size 1: packed holds the element count in
+// sizes[3]; transpose is (outer x2, the unit-stride dim, the inner dim).
+// elem_size is 1, 2 or 4 bytes; `word` (packed only) the bytes each
+// thread moves at once, a power of two from elem_size to 16 that divides
+// the source pointer. `dst` is 16-byte aligned. Launches on `stream`,
+// returns cudaGetLastError() (cudaErrorInvalidValue for a geometry that
+// breaks these rules).
 int stf_layout_pin(const void* src, void* dst, int kind, int elem_size,
                    int word, const int64_t* sizes, const int64_t* strides,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const bool elem_ok = elem_size == 1 || elem_size == 2 || elem_size == 4;
-  if (!elem_ok) return (int)cudaErrorInvalidValue;
-  const bool word_ok = word >= elem_size && word <= 16 && !(word & (word - 1))
-                       && (uintptr_t)src % word == 0
-                       && (uintptr_t)dst % 16 == 0;
-  bool rows_ok = word_ok && (sizes[3] * elem_size) % word == 0
-                 && sizes[0] <= 65535 && sizes[1] * sizes[2] <= INT32_MAX;
-  for (int d = 0; d < 3 && rows_ok; ++d)
-    rows_ok = (strides[d] * elem_size) % word == 0;
+  if (!(elem_size == 1 || elem_size == 2 || elem_size == 4))
+    return (int)cudaErrorInvalidValue;
   switch (kind) {
-    case kRows:
-    case kPacked:
-      if (!word_ok || (kind == kRows && !rows_ok))
-        return (int)cudaErrorInvalidValue;
-#define STF_PIN_WORDS(W) \
-  launch_words<W>(kind, src, dst, elem_size, sizes, strides, st)
+    case kPacked: {
+      const bool word_ok = word >= elem_size && word <= 16
+                           && !(word & (word - 1))
+                           && (uintptr_t)src % word == 0
+                           && (uintptr_t)dst % 16 == 0;
+      if (!word_ok) return (int)cudaErrorInvalidValue;
+      const int64_t nbytes = sizes[3] * elem_size;
       switch (word) {
-        case 1: return STF_PIN_WORDS(uint8_t);
-        case 2: return STF_PIN_WORDS(uint16_t);
-        case 4: return STF_PIN_WORDS(uint32_t);
-        case 8: return STF_PIN_WORDS(uint2);
-        default: return STF_PIN_WORDS(uint4);
+        case 1: return launch_packed<uint8_t>(src, dst, nbytes, st);
+        case 2: return launch_packed<uint16_t>(src, dst, nbytes, st);
+        case 4: return launch_packed<uint32_t>(src, dst, nbytes, st);
+        case 8: return launch_packed<uint2>(src, dst, nbytes, st);
+        default: return launch_packed<uint4>(src, dst, nbytes, st);
       }
-#undef STF_PIN_WORDS
+    }
     case kTranspose:
       if (strides[2] != 1 || (sizes[2] + 31) / 32 > 65535
           || sizes[0] * sizes[1] > 65535)

@@ -40,15 +40,24 @@
 //     "big" part and a TF32 remainder, and big*big + big*small +
 //     small*big keeps about 21 bits of each product (plain TF32 keeps 10,
 //     which would miss the 1e-5 tolerance against the f32 plain version).
-//     Measured on an H100 (PERF.md section 6): max error 3.6e-6 at 8x8 and
-//     1.8e-6 at 4x4, against 1.9e-6 and 1.4e-6 for an f32-FMA version of
-//     this kernel, which was 14-16% slower;
+//     Measured on an H100 (PERF.md section 6): max error 3.8e-6 at 8x8 and
+//     2.0e-6 at 4x4; an f32-FMA version of this kernel was 14-16% slower;
 //   * S = q k^T stays in the accumulator registers; the bias (read from
 //     global memory as float2: every window reads the same bias, so it
 //     stays in L2), the -100 shift penalty from the labels, and the row
 //     softmax (max and sum across the 4 lanes of a row with xor shuffles,
 //     each lane ending with the same bits; one reciprocal per row) work on
 //     them in place;
+//   * the softmax needs only logit - rowmax, but the bias and the penalty
+//     can take a logit to ~100, where an f32 rounding (ulp 7.6e-6) of the
+//     logit itself costs more than the whole tolerance over a full map. So
+//     a first pass takes the row max m of the logits as f32 rounds them,
+//     and a second rereads bias and labels and forms (hi - m) + (s * scale
+//     + lo), hi + lo being bias + penalty exactly (TwoSum): each rounding
+//     is then of a number the size of logit - m. With the bias x30 this
+//     kernel lands 2.4e-6 from an f64 plain version at 8x8, the f32 plain
+//     version 8.8e-6 and a one-pass kernel 9.1e-6; the second pass costs
+//     about 16% at 8x8 (PERF.md section 6);
 //   * P . v takes P from those registers as its A fragments: inside each
 //     8-key tile the key order is permuted (fragment column t <-> key 2t,
 //     t + 4 <-> key 2t + 1) and v's rows are read in the same order, so
@@ -194,7 +203,10 @@ window_attention_kernel(const float* __restrict__ qkv,
   }
 
   // bias, shift penalty, row softmax over the 4 lanes sharing a row;
-  // s[n][0..1] are row r0, s[n][2..3] row r0 + 8, columns 8n + 2t + {0, 1}
+  // s[n][0..1] are row r0, s[n][2..3] row r0 + 8, columns 8n + 2t + {0, 1}.
+  // Pass 1 takes each row's max m of the logits as f32 rounds them; pass 2
+  // rereads bias and labels and forms logit - m without rounding the
+  // logit itself (see the note at the top)
   const float* brow = bias + ((int64_t)h * N + r0) * N + 2 * t;
   const int32_t* lab = labels != nullptr ? labels + (int64_t)win * N : nullptr;
   const int li0 = lab != nullptr ? __ldg(lab + r0) : 0;
@@ -211,23 +223,40 @@ window_attention_kernel(const float* __restrict__ qkv,
     for (int i = 0; i < 4; ++i) {
       float v = s[n][i] * scale + bv[i];
       if ((i & 1 ? lj1 : lj0) != (i < 2 ? li0 : li1)) v += -100.f;
-      s[n][i] = v;
+      if (i < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
     }
-    mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
   }
 #pragma unroll
   for (int o = 1; o < 4; o <<= 1) {
     mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
     mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
   }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 b0 = __ldg((const float2*)(brow + 8 * n));
+    const float2 b1 = __ldg((const float2*)(brow + 8 * N + 8 * n));
+    const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
+    const int lj0 = lab != nullptr ? __ldg(lab + 8 * n + 2 * t) : 0;
+    const int lj1 = lab != nullptr ? __ldg(lab + 8 * n + 2 * t + 1) : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // bias + penalty as the unevaluated sum hi + lo (TwoSum)
+      float hi = bv[i], lo = 0.f;
+      if ((i & 1 ? lj1 : lj0) != (i < 2 ? li0 : li1)) {
+        hi = bv[i] + -100.f;
+        const float bb = hi - bv[i];
+        lo = (bv[i] - (hi - bb)) + (-100.f - bb);
+      }
+      s[n][i] = (hi - (i < 2 ? mx0 : mx1)) + fmaf(s[n][i], scale, lo);
+    }
+  }
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    s[n][0] = expf(s[n][0] - mx0);
-    s[n][1] = expf(s[n][1] - mx0);
-    s[n][2] = expf(s[n][2] - mx1);
-    s[n][3] = expf(s[n][3] - mx1);
+    s[n][0] = expf(s[n][0]);
+    s[n][1] = expf(s[n][1]);
+    s[n][2] = expf(s[n][2]);
+    s[n][3] = expf(s[n][3]);
     sum0 += s[n][0] + s[n][1];
     sum1 += s[n][2] + s[n][3];
   }

@@ -1,6 +1,6 @@
 """Kernel B4's planner (`pin_plan`) on the CPU: for each view the path it
-picks, and that the merged geometry it hands the kernel describes the same
-elements in the same order (a copy rebuilt from the plan alone equals
+picks (packed, transpose or general), and that the merged geometry it
+hands the kernel describes the same elements in the same order (a copy rebuilt from the plan alone equals
 `layout_pin_plain` bit for bit). The kernel itself runs on the card
 (`tests/test_torch_cuda.py::test_layout_pin_kernel_is_bit_exact`)."""
 
@@ -20,7 +20,7 @@ def _views():
     return {
         # (view, expected kind, expected merged sizes or None)
         "packed mu": (f32(2, 32, 32, 48), "packed", (2 * 32 * 32 * 48,)),
-        "cropped lm": (f32(2, 320, 36, 52)[:, :, :32, :48], "rows",
+        "cropped lm": (f32(2, 320, 36, 52)[:, :, :32, :48], "general",
                        (640, 32, 48)),
         "full-size crop is packed": (f32(2, 320, 32, 48)[:, :, :32, :48],
                                      "packed", (2 * 320 * 32 * 48,)),
@@ -38,8 +38,8 @@ def _views():
         "odd uint8": (u8, "packed", (3 * 7 * 11 * 5,)),
         "odd uint8 permuted": (u8.permute(0, 3, 1, 2), "transpose",
                                (3, 5, 77)),
-        "odd bf16 cropped": (bf16[:, 1:], "rows", (13, 128)),
-        "size-1 dims": (f32(1, 6, 1, 7)[:, :, :, 2:], "rows", (6, 5)),
+        "odd bf16 cropped": (bf16[:, 1:], "general", (13, 128)),
+        "size-1 dims": (f32(1, 6, 1, 7)[:, :, :, 2:], "general", (6, 5)),
     }
 
 
@@ -52,11 +52,11 @@ def test_pin_plan_picks_the_path_and_keeps_the_elements(case):
         assert plan.sizes == sizes
     assert len(plan.sizes) == len(plan.strides) <= 4
     assert plan.word % x.element_size() == 0 and plan.word <= 16
-    offsets = [x.data_ptr()]  # the word divides every byte offset it steps
-    if kind == "rows":
-        offsets += [s * x.element_size() for s in plan.strides[:-1]]
-        offsets.append(plan.sizes[-1] * x.element_size())
-    assert all(o % plan.word == 0 for o in offsets)
+    assert x.data_ptr() % plan.word == 0
+    if kind != "packed":
+        assert plan.word == x.element_size()
+    elif x.data_ptr() % 16 == 0:
+        assert plan.word == 16
     rebuilt = torch.as_strided(x, plan.sizes, plan.strides, x.storage_offset())
     want = lc.layout_pin_plain(x)
     got = rebuilt.contiguous().reshape(x.shape)
