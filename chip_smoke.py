@@ -14,9 +14,10 @@ Phases (any failure exits non-zero; nothing is caught):
      launches bit-equal, timed beside SDPA with the same mask; with the
      bias x30, no farther than the f32 plain version from an f64 one;
   4. kernel B2 (lane-rANS decode) against its plain version and the
-     encoded symbols, on a seeded 1,179,648-symbol stream with 1% escapes
-     (one Kodak-size slice at batch 24);
-  5. kernel B3 (lane-rANS encode) on the same stream: its stream must
+     encoded symbols, on seeded streams with 1% escapes at the main path's
+     98,304 symbols a slice (banks bucketed as the codec buckets them) and
+     at 1,179,648 (one Kodak-size slice at batch 24);
+  5. kernel B3 (lane-rANS encode) on the same two streams: its stream must
      equal the native host encoder's field by field, and its outputs the
      plain version's;
   6. kernel B4 (layout pin) on each of its paths: the fused decode's
@@ -37,13 +38,17 @@ Phases (any failure exits non-zero; nothing is caught):
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
 nvidia-smi gives them, and last one JSON line {"ok": true, "device": ...}.
-Kernel times are CUDA-event means: B1's and B4's (and their plain
-versions' and PyTorch calls') over replays of a CUDA graph of many calls,
-their device time as the fused decompress runs them, with the eager
-per-call time (which for a small kernel is its Python wrapper's) beside
-them; B2's and B3's over eager calls. Codec times are host clocks
-around synchronised work; bounds use the H100 SXM data-sheet rates (3.35 TB/s,
-67 TFLOP/s f32 without tensor cores).
+Kernel times are CUDA-event means over replays of a CUDA graph of many
+calls (`graph_ms`), each kernel's device time as the fused decompress
+runs it, with the eager per-call time (which for a small kernel is its
+Python wrapper's) beside it; the plain versions of B2 and B3 are timed
+eagerly. The kernels line's B2 and B3 rows are timed at the main path's
+98,304 symbols, the shape their launch counts come from. Codec times are
+host clocks around synchronised work; bounds use the H100 SXM data-sheet
+rates (3.35 TB/s, 67 TFLOP/s f32 without tensor cores). B2 and B3 also
+print a chain floor: rows a group x the least latency of one row's
+dependent shared loads and integer operations (LDS_CYCLES and
+ALU_CYCLES each) at the card's maximum SM clock.
 """
 
 import json
@@ -241,15 +246,55 @@ def attention_vs_f64(dev, bias_scale):
     return errs
 
 
-def lane_inputs():
-    """(tables, symbols, indexes): a seeded 1,179,648-symbol slice (one
-    Kodak-size slice at batch 24) with 1% escapes."""
+# symbols a slice on the main path (WACNN's M=320 over 10 slices at a
+# 512x768 input, batch 2) and a Kodak-size slice at batch 24
+LANE_MAIN_N = 98_304
+LANE_BIG_N = 1_179_648
+# Latencies for a chain floor, in SM cycles: a shared-memory load that
+# waits on the one before, and an integer multiply-add that waits on the
+# one before, as tools/compare_lane_decode.py measures them
+# (tools/csrc/latency_probe.cu) on an H100 80GB HBM3: 28.6 and 4.5.
+LDS_CYCLES = 28.6
+ALU_CYCLES = 4.5
+
+
+def chain_floor(steps, lds, alu, sm_mhz):
+    """(ms, formula): the least time of `steps` dependent steps, each of
+    `lds` dependent shared loads and `alu` dependent integer operations,
+    at the SM clock."""
+    cycles = lds * LDS_CYCLES + alu * ALU_CYCLES
+    ms = steps * cycles / (sm_mhz * 1e3)
+    return ms, (f"{steps} steps x ({lds} loads x {LDS_CYCLES:g} + {alu} ops x "
+                f"{ALU_CYCLES:g} cycles) / {sm_mhz:g} MHz")
+
+
+def lane_decode_floor(tg, width, sm_mhz):
+    """Kernel B2's chain: a row's search halves the padded width log2(it)
+    times; the first two halvings compare values read a row ahead
+    (LANE_DECODE_PRE), each of the others waits on a shared load; the CDF
+    pair and the word are one shared load each. ~3 integer operations a
+    halving, 12 more for the slot, the update, the ballot, the rank and
+    the word's merge."""
+    levels = (int(width) - 1).bit_length()
+    return chain_floor(tg, levels - min(2, levels) + 2, 12 + 3 * levels, sm_mhz)
+
+
+def lane_encode_floor(tg, sm_mhz):
+    """Kernel B3's chain: 2*tg row steps (two passes), each a shared
+    round trip through the per-row barrier (store, barrier, load: two
+    loads' latency) and ~17 integer operations (pass B's state update,
+    its u32 division the most of them)."""
+    return chain_floor(2 * tg, 2, 17, sm_mhz)
+
+
+def lane_inputs(n):
+    """(tables, symbols, indexes): a seeded n-symbol slice with 1%
+    escapes under the (64, 127) tables the codec uses."""
     import numpy as np
 
     from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
 
-    n = 49152 * 24
     scales = get_scale_table()
     tables = lc.truncate_tables(*build_gc_tables(scales).astuple(), max_half=62)
     rng = np.random.default_rng(SEED)
@@ -260,16 +305,15 @@ def lane_inputs():
     return tables, sym, idx
 
 
-def phase_lane_decode(dev):
-    """B2 vs its plain version and the encoded symbols."""
-    import numpy as np
+def lane_decode_case(n, dev):
+    """(args, symbols, stream, host encode s) for kernel B2 on an n-symbol
+    lane_inputs slice, its banks bucketed as the codec buckets them."""
     import torch
 
     from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.models.codec import _bucket
 
-    tables, sym, idx = lane_inputs()
-    n = sym.size
+    tables, sym, idx = lane_inputs(n)
     t0 = time.perf_counter()
     stream = lc.lane_encode(sym, idx, tables)
     enc_s = time.perf_counter() - t0
@@ -284,90 +328,120 @@ def phase_lane_decode(dev):
         *lc.table_tensors(tables, dev),
         n,
     )
-    out = lc.lane_decode(*args)
-    plain = lc.lane_decode_plain(*args)
-    torch.cuda.synchronize()
-    got = out.cpu().numpy()
-    if not np.array_equal(got, sym):
-        raise AssertionError(f"B2 decode differs from the encoded symbols at "
-                             f"{int((got != sym).sum())} of {n}")
-    if not np.array_equal(plain.cpu().numpy(), sym):
-        raise AssertionError("B2 plain version differs from the encoded symbols")
-    ms = cuda_ms(lambda: lc.lane_decode(*args), 20)
-    plain_ms = cuda_ms(lambda: lc.lane_decode_plain(*args), 1)
-    stream_bytes = 2 * int(stream.word_counts.sum()) + 4 * int(stream.side_counts.sum())
-    nbytes = 8 * n + stream_bytes + 4 * stream.states.size + 4 * tables.cdf.size
-    # ~30 integer operations per symbol: 7-step search, update, renorm, ranks
-    bound_ms, bound_by = bound(nbytes, 30 * n)
-    tg = lc.rows_per_group(n)
-    print(f"B2 lane_decode: n {n} escapes {int(stream.side_counts.sum())} stream {stream_bytes} B "
-          f"(host encode {enc_s:.3f} s) exact; kernel {ms:.4f} ms plain "
-          f"{plain_ms:.2f} ms bound {bound_ms:.4f} ms ({bound_by}); serial "
-          f"chain {tg} rows/group")
-    return [dict(
-        name="lane_decode", route="cuda",
-        source="stf_tpu_torch/csrc/lane_decode.cu",
-        replaces="stf_tpu/ans/lane_coder.py:495",
-        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )]
+    return args, sym, stream, enc_s
 
 
-def phase_lane_encode(dev):
-    """B3 vs its plain version and the native host encoder."""
+def phase_lane_decode(dev, sm_mhz):
+    """B2 vs its plain version and the encoded symbols at the main path's
+    shape and at 1,179,648 symbols; the kernels row is the main path's."""
     import numpy as np
     import torch
 
     from stf_tpu_torch.ans import lane_coder as lc
 
-    tables, sym, idx = lane_inputs()
-    n = sym.size
-    G, K = lc.GROUPS, lc.K
-    t0 = time.perf_counter()
-    want = lc.lane_encode(sym, idx, tables)
-    host_s = time.perf_counter() - t0
-    args = (
-        torch.from_numpy(sym).to(dev), torch.from_numpy(idx).to(dev),
-        *lc.table_tensors(tables, dev), n, int(tables.offsets[0]),
-    )
-    out = lc.lane_encode_device(*args)
-    plain = lc.lane_encode_device_plain(*args)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("words", "side", "states", "counts"), out, plain):
-        if not torch.equal(a, b):
-            raise AssertionError(f"B3 {name} differs from the plain version")
-    words, side, states, counts = (a.cpu().numpy() for a in out)
-    if counts[:, 2].any():
-        raise AssertionError(f"B3 side overflow flags {counts[:, 2].tolist()}")
-    tg, wcap_rows, scap_rows = lc.encode_caps(n)
-    got = lc.assemble_from_tails(
-        words.reshape(G, wcap_rows, K)[:, :tg], side.reshape(G, scap_rows, K),
-        states, counts, n,
-    )
-    for field in lc.LaneStream._fields:
-        if not np.array_equal(getattr(got, field), getattr(want, field)):
-            raise AssertionError(f"B3 stream {field} differs from lane_encode's")
-    ms = cuda_ms(lambda: lc.lane_encode_device(*args), 20)
-    plain_ms = cuda_ms(lambda: lc.lane_encode_device_plain(*args), 1)
-    # symbols and indexes in, the four outputs (int32 cells) out
-    nbytes = 8 * n + 4 * tables.cdf.size + 4 * (
-        words.size + side.size + states.size + counts.size
-    )
-    # ~40 integer operations per symbol over the two passes
-    bound_ms, bound_by = bound(nbytes, 40 * n)
-    stream_bytes = 2 * int(got.word_counts.sum()) + 4 * int(got.side_counts.sum())
-    print(f"B3 lane_encode: n {n} escapes {int(got.side_counts.sum())} stream "
-          f"{stream_bytes} B, identical to the host encoder's; kernel {ms:.4f} ms "
-          f"plain {plain_ms:.2f} ms host encode {host_s:.3f} s bound "
-          f"{bound_ms:.4f} ms ({bound_by}); serial chain 2 x {tg} rows/group; "
-          f"overflow flags {counts[:, 2].tolist()}")
-    return [dict(
-        name="lane_encode", route="cuda",
-        source="stf_tpu_torch/csrc/lane_encode.cu",
-        replaces="stf_tpu/ans/lane_coder.py:801",
-        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )]
+    rows = []
+    for n, iters in ((LANE_MAIN_N, 50), (LANE_BIG_N, 10)):
+        args, sym, stream, enc_s = lane_decode_case(n, dev)
+        out = lc.lane_decode(*args)
+        plain = lc.lane_decode_plain(*args)
+        torch.cuda.synchronize()
+        got = out.cpu().numpy()
+        if not np.array_equal(got, sym):
+            raise AssertionError(f"B2 n={n}: decode differs from the encoded "
+                                 f"symbols at {int((got != sym).sum())} of {n}")
+        if not np.array_equal(plain.cpu().numpy(), sym):
+            raise AssertionError(f"B2 n={n}: plain version differs from the "
+                                 f"encoded symbols")
+        ms = graph_ms(lambda: lc.lane_decode(*args), iters)
+        eager_ms = cuda_ms(lambda: lc.lane_decode(*args), 20)
+        plain_ms = cuda_ms(lambda: lc.lane_decode_plain(*args), 1)
+        stream_bytes = (2 * int(stream.word_counts.sum())
+                        + 4 * int(stream.side_counts.sum()))
+        nbytes = 8 * n + stream_bytes + 4 * stream.states.size + 4 * args[4].numel()
+        # ~30 integer operations per symbol: 7-step search, update, renorm, ranks
+        bound_ms, bound_by = bound(nbytes, 30 * n)
+        tg = lc.rows_per_group(n)
+        floor_ms, formula = lane_decode_floor(tg, args[4].shape[1], sm_mhz)
+        print(f"B2 lane_decode: n {n} escapes {int(stream.side_counts.sum())} "
+              f"stream {stream_bytes} B (host encode {enc_s:.3f} s) exact; "
+              f"kernel {ms:.4f} ms (eager per call {eager_ms:.4f} ms) plain "
+              f"{plain_ms:.2f} ms bound {bound_ms:.4f} ms ({bound_by}); chain "
+              f"floor {floor_ms:.4f} ms = {formula}")
+        if n == LANE_MAIN_N:
+            rows.append(dict(
+                name="lane_decode", route="cuda",
+                source="stf_tpu_torch/csrc/lane_decode.cu",
+                replaces="stf_tpu/ans/lane_coder.py:495",
+                launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            ))
+    return rows
+
+
+def phase_lane_encode(dev, sm_mhz):
+    """B3 vs its plain version and the native host encoder at the main
+    path's shape and at 1,179,648 symbols; the kernels row is the main
+    path's."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.ans import lane_coder as lc
+
+    rows = []
+    for n, iters in ((LANE_MAIN_N, 50), (LANE_BIG_N, 10)):
+        tables, sym, idx = lane_inputs(n)
+        G, K = lc.GROUPS, lc.K
+        t0 = time.perf_counter()
+        want = lc.lane_encode(sym, idx, tables)
+        host_s = time.perf_counter() - t0
+        args = (
+            torch.from_numpy(sym).to(dev), torch.from_numpy(idx).to(dev),
+            *lc.table_tensors(tables, dev), n, int(tables.offsets[0]),
+        )
+        out = lc.lane_encode_device(*args)
+        plain = lc.lane_encode_device_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("words", "side", "states", "counts"), out, plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"B3 n={n}: {name} differs from the plain version")
+        words, side, states, counts = (a.cpu().numpy() for a in out)
+        if counts[:, 2].any():
+            raise AssertionError(f"B3 n={n}: side overflow flags {counts[:, 2].tolist()}")
+        tg, wcap_rows, scap_rows = lc.encode_caps(n)
+        got = lc.assemble_from_tails(
+            words.reshape(G, wcap_rows, K)[:, :tg], side.reshape(G, scap_rows, K),
+            states, counts, n,
+        )
+        for field in lc.LaneStream._fields:
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"B3 n={n}: stream {field} differs from "
+                                     f"lane_encode's")
+        ms = graph_ms(lambda: lc.lane_encode_device(*args), iters)
+        eager_ms = cuda_ms(lambda: lc.lane_encode_device(*args), 20)
+        plain_ms = cuda_ms(lambda: lc.lane_encode_device_plain(*args), 1)
+        # symbols and indexes in, the four outputs (int32 cells) out
+        nbytes = 8 * n + 4 * tables.cdf.size + 4 * (
+            words.size + side.size + states.size + counts.size
+        )
+        # ~40 integer operations per symbol over the two passes
+        bound_ms, bound_by = bound(nbytes, 40 * n)
+        floor_ms, formula = lane_encode_floor(tg, sm_mhz)
+        stream_bytes = 2 * int(got.word_counts.sum()) + 4 * int(got.side_counts.sum())
+        print(f"B3 lane_encode: n {n} escapes {int(got.side_counts.sum())} stream "
+              f"{stream_bytes} B, identical to the host encoder's; kernel "
+              f"{ms:.4f} ms (eager per call {eager_ms:.4f} ms) plain "
+              f"{plain_ms:.2f} ms host encode {host_s:.3f} s bound "
+              f"{bound_ms:.4f} ms ({bound_by}); chain floor {floor_ms:.4f} ms "
+              f"= {formula}; overflow flags {counts[:, 2].tolist()}")
+        if n == LANE_MAIN_N:
+            rows.append(dict(
+                name="lane_encode", route="cuda",
+                source="stf_tpu_torch/csrc/lane_encode.cu",
+                replaces="stf_tpu/ans/lane_coder.py:801",
+                launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            ))
+    return rows
 
 
 def phase_layout_pin(dev):
@@ -617,6 +691,15 @@ def phase_codec(dev, smi):
     return launches
 
 
+def sm_clock_mhz():
+    """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def ptxas_summary(log):
     """One line per kernel from nvcc's -Xptxas -v output: its mangled
     name, registers, spill bytes and static shared memory."""
@@ -656,9 +739,10 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    sm_mhz = sm_clock_mhz()
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name} | {smi} | torch {torch.__version__} | "
-          f"cuda {torch.version.cuda}")
+    print(f"device: {name} | {smi} | max SM clock {sm_mhz:g} MHz | torch "
+          f"{torch.__version__} | cuda {torch.version.cuda}")
 
     from stf_tpu_torch import _native
 
@@ -673,8 +757,8 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
-    rows = (phase_attention(dev) + phase_lane_decode(dev)
-            + phase_lane_encode(dev) + phase_layout_pin(dev))
+    rows = (phase_attention(dev) + phase_lane_decode(dev, sm_mhz)
+            + phase_lane_encode(dev, sm_mhz) + phase_layout_pin(dev))
     launches = phase_codec(dev, smi)
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _lane_stress as ls
 from stf_tpu_torch import _native
 from stf_tpu_torch.ans import lane_coder as lc
 from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
@@ -148,6 +149,59 @@ def test_lane_decode_survives_a_corrupt_stream(dev, tables):
     plain = lc.lane_decode_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, plain)
+
+
+def _decode_both(dev, tables, stream, idx, words, side):
+    args = (
+        torch.from_numpy(idx).to(dev), torch.from_numpy(words).to(dev),
+        torch.from_numpy(side).to(dev), lc.states_tensor(stream, dev),
+        *lc.table_tensors(tables, dev), stream.n,
+    )
+    before = _native.launch_counts["lane_decode"]
+    out = lc.lane_decode(*args)
+    plain = lc.lane_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert _native.launch_counts["lane_decode"] == before + 1
+    return out.cpu().numpy(), plain.cpu().numpy()
+
+
+# the main path's shape with the codec's bucketed banks; every lane
+# renormalising on every row (128 words a row: the word ring's worst
+# refill); rows of escapes only; 32 rows a group (a multiple of the
+# kernel's chunk) and 33
+@pytest.mark.parametrize("case", ["main_path", "all_renorm", "all_escapes",
+                                  "chunk_multiple", "chunk_multiple_plus_one"])
+def test_lane_decode_kernel_on_stress_streams(dev, tables, case):
+    sym, idx = {
+        "main_path": lambda: ls.gaussian(ls.MAIN_PATH_N, 21),
+        "all_renorm": lambda: ls.all_renorm(33 * 1024, 22, tables),
+        "all_escapes": lambda: ls.all_escapes(33 * 1024, 23),
+        "chunk_multiple": lambda: ls.gaussian(32 * 1024, 24),
+        "chunk_multiple_plus_one": lambda: ls.gaussian(33 * 1024, 25),
+    }[case]()
+    stream = lc.lane_encode(sym, idx, tables)
+    if case == "all_renorm":
+        np.testing.assert_array_equal(
+            stream.word_counts, lc.rows_per_group(sym.size) * lc.K)
+    out, plain = _decode_both(dev, tables, stream, idx,
+                              *ls.banks(stream, bucket=True))
+    np.testing.assert_array_equal(out, sym)
+    np.testing.assert_array_equal(plain, sym)
+
+
+def test_lane_decode_kernel_reads_zeros_past_the_word_bank(dev, tables):
+    """A corrupt stream whose word cursor runs past the bank in the rows
+    the kernel stages: zeros there, as in the plain version, and with
+    random words after the bank the same symbols as the plain version."""
+    sym, idx, wrong = ls.corrupt(33 * 1024, 16)
+    stream = lc.lane_encode(sym, idx, tables)
+    words, side = ls.banks(stream)
+    out, plain = _decode_both(dev, tables, stream, wrong, words, side)
+    np.testing.assert_array_equal(out, plain)
+    out2, plain2 = _decode_both(dev, tables, stream, wrong,
+                                ls.past_the_bank(words), side)
+    np.testing.assert_array_equal(out2, plain2)
+    assert not np.array_equal(out, out2)
 
 
 def test_lane_decode_rejects_bad_inputs(dev, tables):
