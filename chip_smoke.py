@@ -48,7 +48,8 @@ host clocks around synchronised work; bounds use the H100 SXM data-sheet
 rates (3.35 TB/s, 67 TFLOP/s f32 without tensor cores). B2 and B3 also
 print a chain floor: rows a group x the least latency of one row's
 dependent shared loads and integer operations (LDS_CYCLES and
-ALU_CYCLES each) at the card's maximum SM clock.
+ALU_CYCLES each) at the card's maximum SM clock, B3's plus its escape
+pass's chunk scans.
 """
 
 import json
@@ -280,11 +281,17 @@ def lane_decode_floor(tg, width, sm_mhz):
 
 
 def lane_encode_floor(tg, sm_mhz):
-    """Kernel B3's chain: 2*tg row steps (two passes), each a shared
-    round trip through the per-row barrier (store, barrier, load: two
-    loads' latency) and ~17 integer operations (pass B's state update,
-    its u32 division the most of them)."""
-    return chain_floor(2 * tg, 2, 17, sm_mhz)
+    """Kernel B3's chain: pass B's tg row steps, each one lane's state
+    update and no dependent shared load (the stagers set its coding cells
+    out ahead): the compare, the select, the multiply by the reciprocal,
+    the remainder, its compare and correction, the shift-add and the add
+    of cum, ~8 dependent integer operations; plus pass A's ceil(tg/32)
+    chunks, each ~8 dependent shared-memory round trips (its two
+    barriers, the scan's five shuffles, the max reduce)."""
+    chunks = -(-int(tg) // 32)
+    b_ms, b_formula = chain_floor(tg, 0, 8, sm_mhz)
+    a_ms, a_formula = chain_floor(chunks, 8, 0, sm_mhz)
+    return b_ms + a_ms, f"pass B {b_formula} + pass A {a_formula}"
 
 
 def lane_inputs(n):

@@ -1,8 +1,9 @@
-"""Seeded lane-coder inputs that stress kernel B2's staging: the main
-path's shape, every lane renormalising on every row, rows of escapes only,
-a stream whose word cursor runs past its bank, and row counts at and one
-past a multiple of the kernel's chunk. NumPy only, so the card tests
-(which import no JAX) and the JAX parity tests share them."""
+"""Seeded lane-coder inputs that stress kernels B2's and B3's staging:
+the main path's shape, every lane renormalising on every row, rows of
+escapes only, a stream whose word cursor runs past its bank, row counts
+at and one past a multiple of the kernels' chunks, and a side bank whose
+write limit a row's start cursor meets exactly. NumPy only, so the card
+tests (which import no JAX) and the JAX parity tests share them."""
 
 import numpy as np
 
@@ -50,6 +51,26 @@ def all_escapes(n, seed):
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, 64, n).astype(np.int32)
     sym = (rng.integers(63, 1 << 20, n) * rng.choice([-1, 1], n)).astype(np.int32)
+    return sym, idx
+
+
+def side_limit(row, seed):
+    """(symbols, indexes) of 6144 symbols (6 rows a group, so a side bank
+    of 6 rows whose writes stop past (6 - 2) * 128 = 512 escapes) where
+    group 0's escapes before row `row` (4 or more) number exactly 512:
+    that row's start cursor is the limit, so it writes its 7 escapes and
+    overflows the group; the row after it, where there is one, starts past
+    the limit and writes none of its 5. Group 0's escape values are
+    1000 + position, its other symbols 0."""
+    sym, idx = gaussian(6 * lc.GROUPS * lc.K, seed, escape_rate=0.0)
+    esc = np.zeros((6, lc.K), bool)
+    for t in range(row):
+        esc[t, : 512 // row + (t < 512 % row)] = True
+    esc[row, :7] = True
+    if row + 1 < 6:
+        esc[row + 1, 50:55] = True
+    esc = esc.reshape(-1)
+    sym[: esc.size] = np.where(esc, 1000 + np.arange(esc.size), 0)
     return sym, idx
 
 

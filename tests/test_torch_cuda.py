@@ -230,9 +230,17 @@ def _encode_inputs(n, seed, n_escape=0):
     return sym, idx
 
 
-def _encode_both(sym, idx, tables, dev):
+def _encode_both(sym, idx, tables, dev, misaligned=False):
+    """Kernel B3 and its plain version on the same inputs: every output
+    equal. misaligned=True hands the kernel views 4 bytes into their
+    storage, which it copies in 4-byte pieces."""
+    def put(a):
+        if not misaligned:
+            return torch.from_numpy(a).to(dev)
+        return torch.from_numpy(np.concatenate([a[:1], a])).to(dev)[1:]
+
     args = (
-        torch.from_numpy(sym).to(dev), torch.from_numpy(idx).to(dev),
+        put(sym), put(idx),
         *lc.table_tensors(tables, dev), sym.size, int(tables.offsets[0]),
     )
     before = _native.launch_counts["lane_encode"]
@@ -270,6 +278,52 @@ def test_lane_encode_kernel_flags_side_overflow(dev, tables):
     sym[: 5 * lc.K] = 1000
     out = _encode_both(sym, idx, tables, dev)
     assert out[3][0, 2] == 1 and not out[3][1:, 2].any()
+
+
+# the main path's shape; every lane renormalising on every row; rows of
+# escapes only (every group overflows: the flags equal the plain
+# version's); 16 and 17 rows a group (the kernel's chunk, and a one-row
+# chunk at the top); a row whose start cursor is the side bank's write
+# limit (row 4, and a row later); inputs not 16-byte aligned
+@pytest.mark.parametrize("case", ["main_path", "all_renorm", "all_escapes",
+                                  "chunk_rows", "chunk_rows_plus_one",
+                                  "side_limit_row4", "side_limit_row5",
+                                  "misaligned"])
+def test_lane_encode_kernel_on_stress_inputs(dev, tables, case):
+    sym, idx = {
+        "main_path": lambda: ls.gaussian(ls.MAIN_PATH_N, 31),
+        "all_renorm": lambda: ls.all_renorm(33 * 1024, 32, tables),
+        "all_escapes": lambda: ls.all_escapes(33 * 1024, 33),
+        "chunk_rows": lambda: ls.gaussian(16 * 1024, 34),
+        "chunk_rows_plus_one": lambda: ls.gaussian(17 * 1024, 35),
+        "side_limit_row4": lambda: ls.side_limit(4, 36),
+        "side_limit_row5": lambda: ls.side_limit(5, 37),
+        "misaligned": lambda: ls.gaussian(17 * 1024 + 77, 38),
+    }[case]()
+    out = _encode_both(sym, idx, tables, dev, misaligned=case == "misaligned")
+    overflow = out[3][:, 2]
+    if case == "all_escapes":
+        assert overflow.all()
+        return
+    if case.startswith("side_limit"):
+        assert overflow[0] == 1 and not overflow[1:].any()
+        side0 = out[1].reshape(lc.GROUPS, -1)[0]
+        row = int(case[-1])
+        np.testing.assert_array_equal(side0[512:519],
+                                      1000 + row * lc.K + np.arange(7))
+        assert not side0[519:].any()
+        return
+    assert not overflow.any()
+    tg, wcap_rows, scap_rows = lc.encode_caps(sym.size)
+    got = lc.assemble_from_tails(
+        out[0].reshape(lc.GROUPS, wcap_rows, lc.K)[:, :tg],
+        out[1].reshape(lc.GROUPS, scap_rows, lc.K), out[2], out[3], sym.size,
+    )
+    want = lc.lane_encode(sym, idx, tables)
+    for field in lc.LaneStream._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    if case == "all_renorm":
+        np.testing.assert_array_equal(want.word_counts, tg * lc.K)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _lane_stress as ls
 from stf_tpu.ans import lane_coder as jlc
 from stf_tpu_torch.ans import lane_coder as lc
 from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
@@ -90,6 +91,46 @@ def test_side_overflow_is_flagged_like_jax(tables):
     np.testing.assert_array_equal(got[3], want[3])
     assert got[3][0, 2] == 1 and not got[3][1:, 2].any()
     np.testing.assert_array_equal(got[2], want[2])  # states are unaffected
+
+
+# the inputs of the B3 card tests (tests/test_torch_cuda.py) at sizes the
+# interpreter runs in seconds: every lane renormalising on every row, rows
+# of escapes only (every group overflows), 16 and 17 rows a group (kernel
+# B3's chunk, and one more: a one-row chunk at the top), and a row whose
+# start cursor is the side bank's write limit (row 4, and a row later)
+@pytest.mark.parametrize("case", ["all_renorm", "all_escapes", "chunk_rows",
+                                  "chunk_rows_plus_one", "side_limit_row4",
+                                  "side_limit_row5"])
+def test_plain_encoder_matches_jax_kernel_on_stress_inputs(tables, case):
+    sym, idx = {
+        "all_renorm": lambda: ls.all_renorm(17 * 1024, 32, tables),
+        "all_escapes": lambda: ls.all_escapes(17 * 1024, 33),
+        "chunk_rows": lambda: ls.gaussian(16 * 1024, 34),
+        "chunk_rows_plus_one": lambda: ls.gaussian(17 * 1024, 35),
+        "side_limit_row4": lambda: ls.side_limit(4, 36),
+        "side_limit_row5": lambda: ls.side_limit(5, 37),
+    }[case]()
+    got = [a.numpy() for a in _port_encode(sym, idx, tables)]
+    want = _jax_encode(sym, idx, tables)
+    for name, g, w in zip(("words", "side", "states", "counts"), got, want):
+        written = w != _UNWRITTEN
+        np.testing.assert_array_equal(g[written], w[written], err_msg=name)
+        assert not g[~written].any(), name
+    overflow = got[3][:, 2]
+    if case == "all_escapes":
+        assert overflow.all()
+    elif case.startswith("side_limit"):
+        assert overflow[0] == 1 and not overflow[1:].any()
+        side0 = got[1].reshape(lc.GROUPS, -1)[0]
+        row = int(case[-1])
+        # the row at the limit wrote its 7 escapes there; the row after, none
+        np.testing.assert_array_equal(side0[512:519],
+                                      1000 + row * lc.K + np.arange(7))
+        assert not side0[519:].any()
+    else:
+        assert not overflow.any()
+        _assert_same_stream(_assemble(got, sym.size),
+                            lc.lane_encode(sym, idx, tables))
 
 
 def test_escapes_beyond_2_24_are_stored(tables):

@@ -31,20 +31,22 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def build(tag, source, defines=()):
+def build(tag, source, defines=(), name="lanedecode"):
     """Build `source` with `-D` defines into stf_tpu_torch/build/ and load
-    it with the wrapper's declarations."""
+    it with the declarations of the native library `name`; nvcc's output
+    goes to `_native.build_logs[f"{name}_{tag}"]`."""
     from stf_tpu_torch import _native
 
     os.makedirs(_native.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_native.BUILD_DIR, f"liblanedecode_{tag}.so")
-    cmd = _native._command("lanedecode", out)
+    out = os.path.join(_native.BUILD_DIR, f"lib{name}_{tag}.so")
+    cmd = _native._command(name, out)
     cmd[-1:] = [f"-D{d}" for d in defines] + [source]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode:
         raise RuntimeError(f"{tag}: build failed\n{done.stdout}{done.stderr}")
+    _native.build_logs[f"{name}_{tag}"] = done.stdout + done.stderr
     lib = ctypes.CDLL(out)
-    _native._declarations["lanedecode"](lib)
+    _native._declarations[name](lib)
     return lib
 
 
