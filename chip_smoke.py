@@ -28,12 +28,19 @@ Phases (any failure exits non-zero; nothing is caught):
   7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
      uint8 images with coder="lane" (y encoded by B3; fused and per-slice
-     decompress) and coder="host"; the lane y-stream must equal the host
-     lane encoder's on the same symbols, symbols and x_hat must agree
-     across the paths, and each kernel's launch count must match the path
-     (compress: 10 B3 launches; fused decompress: one graph replay, 10 B2
-     and 32 B4 launches, 21 of them on B4's packed path and 11 on its
-     transpose path, no hash fallback).
+     decompress), coder="host", and the lane coder's two fused encode
+     tiers (full and split: one CUDA-graph replay of the encode; the
+     first call captures it and decodes its stream as a self-check); the
+     lane y-stream must equal the host lane encoder's on the same
+     symbols, each tier's must equal it from byte 1 on with the
+     fused-encode flag and no tier may be demoted, symbols and x_hat must
+     agree across the paths, and each kernel's launch count must match
+     the path (compress: 10 B3 launches; fused decompress: one graph
+     replay, 10 B2 and 32 B4 launches, 21 of them on B4's packed path and
+     11 on its transpose path, no hash fallback; a tier's replay: 10 B3
+     launches, and 31 packed B4 pins in the split tier). It ends with
+     warm medians of each compress and decompress and the device-busy
+     share of one warm call of each compress.
 
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
@@ -139,6 +146,40 @@ def graph_ms(fn, iters, replays=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def profile_call(fn, name, trace=None):
+    """(wall s, device-busy s, device events) of one call of `fn` in a
+    torch.profiler window of its own: busy is the sum of the device
+    events' self times (the kernels and copies), without the annotation's
+    own device range; `trace` names a Chrome trace file to write. The
+    first window in a process also pays the tracer's start-up, so spend
+    one on an untimed call first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function(name):
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace)
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and _device_us(e) > 0 and e.key != name
+    ]
+    return wall, sum(_device_us(e) for e in events) / 1e6, events
 
 
 def bound(nbytes, ops):
@@ -549,7 +590,8 @@ def host_lane_stream(codec, enc):
 
 def phase_codec(dev, smi):
     """The main path: full-width WACNN lane (B3 encode, fused and
-    per-slice decompress) and host round trips."""
+    per-slice decompress), host, and the two fused encode tiers' round
+    trips."""
     import warnings
 
     import numpy as np
@@ -565,6 +607,9 @@ def phase_codec(dev, smi):
     model = create_model("cnn", seed=SEED)
     lane = Codec(model, coder="lane", device=dev)
     host = Codec(model, coder="host", device=dev)
+    tiers = {"full": Codec(model, coder="lane", device=dev, fused_encode=True),
+             "split": Codec(model, coder="lane", device=dev,
+                            fused_encode="split")}
     counts = _native.launch_counts
     S = model.num_slices
 
@@ -582,10 +627,14 @@ def phase_codec(dev, smi):
         finally:
             lane.fused = True
 
-    def fused_strict(enc):
+    def strict(fn, *a):
         with warnings.catch_warnings():
-            warnings.simplefilter("error")  # a hash fallback fails the smoke
-            return lane.decompress(enc["strings"], enc["shape"])
+            # a hash fallback or a tier's demotion fails the smoke
+            warnings.simplefilter("error")
+            return fn(*a)
+
+    def fused_strict(enc, codec=lane):
+        return strict(codec.decompress, enc["strings"], enc["shape"])
 
     steps, secs = {}, {}
 
@@ -609,6 +658,15 @@ def phase_codec(dev, smi):
     hdec = run("host decompress", host.decompress, henc["strings"], henc["shape"])
     fdec = run(fused, fused_strict, enc)
     wdec = run(per_slice, per_slice_decompress, enc)
+    tier_steps = {}
+    for tier, codec in tiers.items():
+        steps_of = (f"{tier}-tier compress, first: warm-up + capture + replay "
+                    "+ self-check", f"{tier}-tier compress (replay)",
+                    f"fused decompress of the {tier}-tier stream (replay)")
+        first_enc = run(steps_of[0], strict, codec.compress, x)
+        tenc = run(steps_of[1], strict, codec.compress, x)
+        tdec = run(steps_of[2], fused_strict, tenc, codec)
+        tier_steps[tier] = steps_of, first_enc, tenc, tdec
     launches = dict(counts)  # the main path ends here
     for step, d in steps.items():
         print(f"launches in {step}: {d}")
@@ -635,6 +693,28 @@ def phase_codec(dev, smi):
             raise AssertionError(f"{name} x_hat is not bit-equal to the host coder's")
     if len(lane._graphs) != 1:
         raise AssertionError(f"{len(lane._graphs)} fused graphs for one geometry")
+    y_want = enc["strings"][0][0]
+    for tier, ((_, step, _), first_enc, tenc, tdec) in tier_steps.items():
+        codec = tiers[tier]
+        if codec._fused_mode != tier or not codec.fused_encode:
+            raise AssertionError(f"{tier} tier demoted to {codec._fused_mode} "
+                                 f"(fused_encode {codec.fused_encode})")
+        for e in (first_enc, tenc):
+            y = e["strings"][0][0]
+            if y[0] != y_want[0] | 1 or y[1:] != y_want[1:]:
+                raise AssertionError(f"{tier} tier: y-stream is not the "
+                                     "per-slice stream with the fused flag")
+            if e["strings"][1] != enc["strings"][1]:
+                raise AssertionError(f"{tier} tier: z strings differ")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(e["symbols"] + e["indexes"],
+                           enc["symbols"] + enc["indexes"])):
+                raise AssertionError(f"{tier} tier: symbols or indexes differ")
+        if not torch.equal(tdec["x_hat"], dec["x_hat"]):
+            raise AssertionError(f"{tier} tier: decoded x_hat differs")
+        if len(codec._enc_graphs) != 1 or len(codec._graphs) != 1:
+            raise AssertionError(f"{tier} tier: {len(codec._enc_graphs)} encode "
+                                 f"and {len(codec._graphs)} decode graphs")
     x_hat = dec["x_hat"]
     if x_hat.shape != (BATCH, HEIGHT, WIDTH, 3) or not torch.isfinite(x_hat).all():
         raise AssertionError(f"x_hat shape {tuple(x_hat.shape)} or values bad")
@@ -649,7 +729,13 @@ def phase_codec(dev, smi):
     def b1(d):
         return sum(v for k, v in d.items() if k.startswith("window_attention"))
 
-    # (step, B1, B2, B3, B4) launches each step must show
+    # (step, B1, B2, B3, B4) launches each step must show. A tier's first
+    # compress runs its walk eagerly (warm-up), captures it (counts taken
+    # back) and replays it, then its self-check's fused decompress does the
+    # same (B1 2 + 2, B2 S + S, B4 32 + 32); the split tier's analysis runs
+    # eagerly once a call (B1 2) and its walk pins 3S + 1 operands.
+    (full_first, full_replay, full_dec), _, _, _ = tier_steps["full"]
+    (split_first, split_replay, split_dec), _, _, _ = tier_steps["split"]
     want = (
         ("lane compress", 2, 0, S, 0),
         (first, 4, 2 * S, 0, 64),
@@ -657,6 +743,12 @@ def phase_codec(dev, smi):
         ("host decompress", 2, 0, 0, 0),
         (fused, 2, S, 0, 32),
         (per_slice, 2, S, 0, 0),
+        (full_first, 4 + 4, 2 * S, 2 * S, 64),
+        (full_replay, 2, 0, S, 0),
+        (full_dec, 2, S, 0, 32),
+        (split_first, 2 + 4, 2 * S, 2 * S, 2 * (3 * S + 1) + 64),
+        (split_replay, 2, 0, S, 3 * S + 1),
+        (split_dec, 2, S, 0, 32),
     )
     for step, *expect in want:
         d = steps[step]
@@ -666,10 +758,15 @@ def phase_codec(dev, smi):
             raise AssertionError(f"{step}: B1/B2/B3/B4 launches {got}, want {expect}")
     # B4's 32 pins per fused walk by path: z_hat and the S rv are NHWC
     # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
-    for step, reps in ((first, 2), (fused, 1)):
+    # (the tiers' stream decodes likewise); the split tier's 3S + 1 pins
+    # (lm, ls, every mu and q, the S - 1 y_prev) are all packed
+    for step, reps, enc_reps in (
+        (first, 2, 0), (fused, 1, 0), (full_first, 2, 0), (full_dec, 1, 0),
+        (split_first, 2, 2), (split_replay, 0, 1), (split_dec, 1, 0),
+    ):
         got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
-        want = {"packed": reps * (2 * S + 1), "transpose": reps * (S + 1),
-                "general": 0}
+        want = {"packed": reps * (2 * S + 1) + enc_reps * (3 * S + 1),
+                "transpose": reps * (S + 1), "general": 0}
         print(f"B4 pins by path in {step}: {got}")
         if got != want:
             raise AssertionError(f"{step}: B4 pins by path {got}, want {want}")
@@ -687,14 +784,26 @@ def phase_codec(dev, smi):
     print("first calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     # warm per-call times, medians of 5
     warm = {}
-    for name, fn in (
-        ("lane compress (B3)", lambda: lane.compress(x)),
+    calls = (
+        ("lane compress (B3, per-slice walk)", lambda: lane.compress(x)),
+        ("full-tier compress", lambda: strict(tiers["full"].compress, x)),
+        ("split-tier compress", lambda: strict(tiers["split"].compress, x)),
         ("fused decompress", lambda: fused_strict(enc)),
         ("per-slice decompress", lambda: per_slice_decompress(enc)),
-    ):
+    )
+    for name, fn in calls:
         warm[name] = float(np.median([timed(fn)[1] for _ in range(5)]))
     print(f"warm per call ({smi}): "
           + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
+    # device-busy share of one warm call each, in a profiler window of its
+    # own (the first window, untimed, pays the tracer's start-up)
+    profile_call(calls[0][1], "tracer start-up")
+    shares = []
+    for name, fn in calls[:3]:
+        wall, busy, _ = profile_call(fn, name)
+        shares.append(f"{name} {wall * 1e3:.3f} ms wall, device busy "
+                      f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
+    print(f"profiled warm call ({smi}): " + "; ".join(shares))
     return launches
 
 

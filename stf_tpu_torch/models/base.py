@@ -68,6 +68,7 @@ class ChannelARModel(nn.Module):
     entropy_bottleneck, num_slices and max_support_slices."""
 
     hyper_upsample = 4
+    analysis_downsample = 16  # y is ceil(H/16) x ceil(W/16) of the image
 
     def analysis(self, x):
         return self.g_a(x)

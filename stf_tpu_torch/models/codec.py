@@ -23,16 +23,25 @@ the whole stream and one CUDA-graph replay of hyper synthesis, the walk
 pins it) and synthesis. A hash mismatch there warns and falls back to the
 per-slice walk, which raises on its own mismatch.
 
+Lane compress has the JAX codec's fused encode tiers (`fused_encode`):
+"full" replays one CUDA graph of the whole encode (normalise, analysis, z
+quantization, hyper synthesis, the walk with B3 per slice); "split" runs
+analysis, z quantization and hyper synthesis eagerly, as the per-slice
+compress does, and replays one graph of the walk (pinned by B4 where the
+JAX split program pins it). Their streams set the header's fused-encode
+flag. The first stream of each configuration is decoded before compress
+returns it; a failure demotes full -> split -> the per-slice walk.
+
 Stream layout matches the JAX codec at pipeline=1: host y-streams are per
 image (slices 0..S-1 in NHWC C-order); the lane y-stream is the u32 header
-0x4C414E00 (low byte: flags), S u32 index hashes, then the packed lane
-segments, one per slice. Left out of this port so far: the fused encode
-tiers (and so never setting the fused-encode header flag, though decoders
-accept it), pipeline > 1 with the fused decode's split synthesis, the
-packed drain, analyze/synth chunks and bf16 transforms.
+0x4C414E00 (low byte: flags, bit 0 = fused encode), S u32 index hashes,
+then the packed lane segments, one per slice. Left out of this port so
+far: pipeline > 1 with the fused decode's split synthesis, the packed
+drain, analyze/synth chunks and bf16 transforms.
 """
 
 import collections
+import struct
 import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -52,8 +61,19 @@ from ..entropy import (
 _HASH_MUL = 2654435761
 _HASH_ADD = 97531
 _LANE_HEADER_MAGIC = 0x4C414E00
-# fused decode graphs a codec keeps; the least recently used goes first
+# header flag of a stream whose scale indexes a fused encode tier derived
+_LANE_FLAG_FUSED_ENC = 0x01
+# graphs a codec keeps of each kind (decode, encode); the least recently
+# used goes first
 _GRAPH_CACHE = 4
+# symbols a slice above which compress takes no fused encode tier: the
+# JAX codec's guard, kept because the header flag is part of the stream
+_FUSED_ENC_MAX_SLICE = 2_000_000
+
+
+class _LaneSideOverflow(Exception):
+    """A fused-encode segment overflowed B3's escape side channel; the
+    caller reruns the per-slice compress, which host-encodes it."""
 
 
 def _bucket(rows: int, minimum: int = 8) -> int:
@@ -76,6 +96,49 @@ def idx_hash(idx_flat: torch.Tensor) -> torch.Tensor:
 def _nhwc_flat(t: torch.Tensor) -> torch.Tensor:
     """NCHW -> flat NHWC C-order (the streams' symbol order)."""
     return t.permute(0, 2, 3, 1).reshape(-1)
+
+
+def _z_quantize_math(z, medians):
+    """z quantization, shared by the per-slice compress and the fused
+    encode tiers: (int32 symbols, their int8 copy, a device flag set when
+    a symbol leaves int8, z_hat). z_hat = symbols + medians in f32, the
+    op the decoder runs on the same values."""
+    sym32 = torch.round(z.to(torch.float32) - medians).to(torch.int32)
+    sym8 = sym32.clamp(-128, 127).to(torch.int8)
+    overflow = (sym32 != sym8.to(torch.int32)).any()
+    return sym32, sym8, overflow, sym32.to(torch.float32) + medians
+
+
+def _z_tail(sym8, overflow):
+    """int32 [overflow flag, then z's int8 NHWC symbols, 4 a word]: the
+    end of a fused tier's meta vector."""
+    flat = _nhwc_flat(sym8)
+    pad = -flat.numel() % 4
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return torch.cat([overflow.to(torch.int32).reshape(1),
+                      flat.view(torch.int32)])
+
+
+def _lane_meta(banks, hashes, tail=()):
+    """One int32 vector of what a lane compress reads back before it
+    builds the stream: every slice's (G, 128) B3 counts, every slice's
+    index hash (its u32 bits), then `tail`."""
+    return torch.cat(
+        [b[3].reshape(-1) for b in banks]
+        + [torch.stack(hashes).to(torch.int32)] + list(tail)
+    )
+
+
+def _split_meta(meta: np.ndarray, S: int):
+    """A fetched `_lane_meta` -> (counts (S, G, 128), u32 hashes, tail)."""
+    n = S * lc.GROUPS * 128
+    return (meta[:n].reshape(S, lc.GROUPS, 128),
+            meta[n:n + S].view(np.uint32), meta[n + S:])
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
 
 
 def default_device() -> torch.device:
@@ -108,14 +171,34 @@ class Codec:
     CUDA-graph replay per stream geometry (see the module docstring);
     False always takes the per-slice walk. The codec keeps the graphs of
     the last `_GRAPH_CACHE` geometries, all in one memory pool.
+
+    `fused_encode` (False, True or "split"; lane only) compresses through
+    a fused encode tier: True starts at "full", "split" there (the JAX
+    codec's flag). Each tier captures one CUDA graph per (tier, input
+    shape, dtype), the last `_GRAPH_CACHE` kept in the same pool. Such a
+    stream's indexes come from the captured walk, so its header carries
+    the fused-encode flag and every decoder checks them against the
+    stream's hashes. With `fused_verify` (default True) compress decodes
+    the first stream of each configuration before returning it; on
+    failure it warns and demotes the tier (full -> split -> off) and
+    encodes again. Past `_FUSED_ENC_MAX_SLICE` symbols a slice, or when
+    a segment overflows B3's side channel, compress takes the per-slice
+    walk for that call, with no flag.
     """
 
     def __init__(self, model, scale_table: Optional[np.ndarray] = None,
-                 coder: str = "host", device=None):
+                 coder: str = "host", device=None, fused_encode=False,
+                 fused_verify: bool = True):
         if coder not in ("host", "lane"):
             raise ValueError(f"unknown entropy coder {coder!r}")
+        if fused_encode not in (False, True, "split"):
+            raise ValueError(f"fused_encode is False, True or 'split', not "
+                             f"{fused_encode!r}")
         self.coder = coder
         self.fused = True
+        self.fused_encode = bool(fused_encode) and coder == "lane"
+        self._fused_mode = "split" if fused_encode == "split" else "full"
+        self.fused_verify = bool(fused_verify)
         self.device = default_device() if device is None else torch.device(device)
         # one fixed numerical policy, so encoder and decoder agree bitwise
         torch.backends.cudnn.benchmark = False
@@ -158,8 +241,11 @@ class Codec:
             self._lane_dev_tables = lc.table_tensors(
                 self.lane_tables, self.device
             )
-            # captured decode graphs close over the tables: drop them
+            # captured graphs close over the tables: drop them, and
+            # verify the first stream of every new encode graph again
             self._graphs = collections.OrderedDict()
+            self._enc_graphs = collections.OrderedDict()
+            self._enc_verified = set()
             self._graph_pool = None
         return True
 
@@ -170,11 +256,13 @@ class Codec:
         return z_sym.to(torch.float32) + self._medians
 
     def _walk_slices(self, latent_means, latent_scales, get_symbols,
-                     pin=lambda t: t):
+                     pin=lambda t: t, need_y_hat=True):
         """The channel-AR slice chain. `get_symbols(i, mu, idx)` returns the
         int32 NCHW symbols of slice i, from quantization (encoder) or from
-        the stream (decoder). Both sides run exactly this walk. The fused
-        decompress passes `pin=lc.layout_pin`, which copies every operand
+        the stream (decoder). Both sides run exactly this walk;
+        `need_y_hat=False` (the encoder) skips the last slice's apply, which
+        feeds nothing the encoder reads. The fused decompress and the split
+        encode tier pass `pin=lc.layout_pin`, which copies every operand
         at the positions where the JAX codec's fused walk
         (`_traced_walk`) pins them; the copies change no value. On CUDA
         the pins of rv (an NHWC tensor viewed as NCHW) give it packed NCHW
@@ -199,19 +287,50 @@ class Codec:
             mu = pin(mu)
             y_hat_slices.append(pin(y_prev))
         rv = pin(get_symbols(model.num_slices - 1, mu, idx))
-        y_hat_slices.append(model.decode_slice_apply(
-            model.num_slices - 1, lm, support(), mu, rv
-        ))
+        if need_y_hat:
+            y_hat_slices.append(model.decode_slice_apply(
+                model.num_slices - 1, lm, support(), mu, rv
+            ))
         return y_hat_slices
+
+    @staticmethod
+    def _normalize(x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 or float image -> NCHW f32, where it lies."""
+        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.float()
+        return x.permute(0, 3, 1, 2).contiguous()
 
     def _to_device_image(self, x) -> torch.Tensor:
         """(B, H, W, 3) uint8 or float image -> NCHW f32 on the device;
         uint8 normalizes on the device (1 byte/pixel crosses)."""
-        if not torch.is_tensor(x):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        x = x.to(self.device)
-        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.float()
-        return x.permute(0, 3, 1, 2).contiguous()
+        return self._normalize(_as_tensor(x).to(self.device))
+
+    def _encode_walk(self, y, latent_means, latent_scales, pin=lambda t: t):
+        """The encoder's walk on NCHW y: per-slice NHWC int32 symbols and
+        indexes, and for the lane coder each slice's B3 outputs (words,
+        side, states, counts) and index hash (an int64 device scalar).
+        Reads nothing back to the host, so the fused tiers capture it."""
+        lane = self.coder == "lane"
+        pad_sym = int(self.lane_tables.offsets[0]) if lane else 0
+        y_slices = self.model.split_slices(y)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        symbols, indexes, banks, hashes = [], [], [], []
+
+        def get_symbols(i, mu, idx):
+            q = torch.round(y_slices[i] - mu).to(torch.int32)
+            symbols.append(nhwc(q))
+            indexes.append(nhwc(idx))
+            if lane:
+                idx_flat = _nhwc_flat(idx)
+                banks.append(lc.lane_encode_device(
+                    _nhwc_flat(q), idx_flat, *self._lane_dev_tables,
+                    q.numel(), pad_sym,
+                ))
+                hashes.append(idx_hash(idx_flat))
+            return q
+
+        self._walk_slices(latent_means, latent_scales, get_symbols, pin=pin,
+                          need_y_hat=False)
+        return symbols, indexes, banks, hashes
 
     # -- compress ------------------------------------------------------------
 
@@ -221,42 +340,32 @@ class Codec:
         the z spatial shape, and the per-slice NHWC int32 symbols and
         indexes that were coded (device tensors). Lane codecs also return
         "host_encoded", the number of y segments whose side channel
-        overflowed in B3 and that the host encoder coded instead."""
+        overflowed in B3 and that the host encoder coded instead. With
+        `fused_encode` set this tries the fused tier first."""
+        if self.fused_encode:
+            out = self._compress_fused(x)
+            if out is not None:
+                return out
         model = self.model
         y, z = model.analyze(self._to_device_image(x))
-        z_sym = torch.round(z - self._medians).to(torch.int32)
-        z_hat = self._z_dequantize(z_sym)
+        z_sym, _, _, z_hat = _z_quantize_math(z, self._medians)
         latent_means, latent_scales = model.hyper_synthesize(
             z_hat, (y.shape[2], y.shape[3])
         )
-        y_slices = model.split_slices(y)
-        lane = self.coder == "lane"
-        pad_sym = int(self.lane_tables.offsets[0]) if lane else 0
-        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-        symbols, indexes = [], []
-        pending = []  # lane, per slice: (B3 outputs, index hash)
-
-        def get_symbols(i, mu, idx):
-            q = torch.round(y_slices[i] - mu).to(torch.int32)
-            symbols.append(nhwc(q))
-            indexes.append(nhwc(idx))
-            if lane:
-                idx_flat = _nhwc_flat(idx)
-                pending.append((lc.lane_encode_device(
-                    _nhwc_flat(q), idx_flat, *self._lane_dev_tables,
-                    q.numel(), pad_sym,
-                ), idx_hash(idx_flat)))
-            return q
-
-        self._walk_slices(latent_means, latent_scales, get_symbols)
+        symbols, indexes, banks, hashes = self._encode_walk(
+            y, latent_means, latent_scales
+        )
         out = {
             "shape": (z.shape[2], z.shape[3]),
             "symbols": symbols,
             "indexes": indexes,
         }
-        if lane:
+        if self.coder == "lane":
+            counts, hvec, _ = _split_meta(
+                _lane_meta(banks, hashes).cpu().numpy(), len(banks)
+            )
             blob, out["host_encoded"] = self._build_lane_stream(
-                pending, symbols, indexes
+                counts, hvec, banks, symbols, indexes
             )
             y_strings = [blob]
         else:
@@ -275,29 +384,30 @@ class Codec:
                     )
             y_strings = [e.flush() for e in encoders]
 
-        z_strings = self.eb_coder.compress_symbols(nhwc(z_sym).cpu().numpy())
+        z_strings = self.eb_coder.compress_symbols(
+            z_sym.permute(0, 2, 3, 1).cpu().numpy()
+        )
         out["strings"] = [y_strings, z_strings]
         return out
 
-    def _build_lane_stream(self, pending, symbols, indexes):
-        """The lane y-stream from the walk's pending entries and the
-        slices' NHWC symbols and indexes (device tensors), and how many
-        segments the host encoder coded.
+    def _build_lane_stream(self, counts, hashes, banks, symbols, indexes,
+                           flags: int = 0):
+        """The lane y-stream with header `flags`, and how many segments
+        the host encoder coded, from every slice's B3 counts (S, G, 128)
+        and index hash (fetched), B3 banks (words, side, states) and NHWC
+        symbols and indexes (device tensors).
 
-        One fetch brings every slice's index hash and every B3 launch's
-        counts. Segments B3 encoded without overflow then come over as
-        bucketed tails, one fetch per segment geometry, so only ~stream
-        bytes cross; a segment whose side channel overflowed is encoded
-        by the native host encoder from the same symbols. The two encoders
-        are bit-exact, so the mix is invisible to decoders."""
+        Segments B3 encoded without overflow come over as bucketed tails,
+        one fetch per segment geometry, so only ~stream bytes cross; a
+        segment whose side channel overflowed is encoded by the native
+        host encoder from the same symbols. The two encoders are
+        bit-exact, so the mix is invisible to decoders. A fused-encode
+        stream (flag set) takes no host segment: it raises
+        `_LaneSideOverflow` instead, as the JAX codec does."""
         G, K = lc.GROUPS, lc.K
-        S = len(pending)
-        fetched = torch.cat(
-            [torch.stack([h for _, h in pending])]
-            + [e[3].reshape(-1).to(torch.int64) for e, _ in pending]
-        ).cpu().numpy()
-        hashes = fetched[:S]
-        counts = fetched[S:].reshape(S, G, 128)
+        S = len(banks)
+        if flags & _LANE_FLAG_FUSED_ENC and counts[:, :, 2].any():
+            raise _LaneSideOverflow(np.flatnonzero(counts[:, :, 2].any(1)))
 
         def numel(j):
             return symbols[j].numel()
@@ -315,14 +425,14 @@ class Codec:
             wb, sb = tail_rows(js, 0, tg), tail_rows(js, 1, scap_rows)
             parts = [
                 torch.stack([
-                    pending[j][0][0].reshape(G, wcap_rows, K)[:, tg - wb:tg]
+                    banks[j][0].reshape(G, wcap_rows, K)[:, tg - wb:tg]
                     for j in js
                 ]),
                 torch.stack([
-                    pending[j][0][1].reshape(G, scap_rows, K)[:, :sb]
+                    banks[j][1].reshape(G, scap_rows, K)[:, :sb]
                     for j in js
                 ]),
-                torch.stack([pending[j][0][2] for j in js]),
+                torch.stack([banks[j][2] for j in js]),
             ]
             flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
             w, s, st = (
@@ -343,16 +453,200 @@ class Codec:
                 indexes[j].cpu().numpy().reshape(-1), self.lane_tables,
             )
         blob = (
-            np.asarray([_LANE_HEADER_MAGIC], "<u4").tobytes()
+            np.asarray([_LANE_HEADER_MAGIC | flags], "<u4").tobytes()
             + hashes.astype("<u4").tobytes()
             + lc.pack_lane_stream([segments[j] for j in range(S)])
         )
         return blob, len(host)
 
+    # -- fused encode tiers ---------------------------------------------------
+
+    def _fused_fits(self, x_shape) -> bool:
+        """Whether a (B, H, W, 3) input's largest slice holds at most
+        `_FUSED_ENC_MAX_SLICE` symbols, from its shape alone."""
+        model = self.model
+        B, H, W = x_shape[:3]
+        d, M = model.analysis_downsample, model.M
+        widths = np.diff([0] + model.slice_boundaries(M) + [M])
+        return B * -(-H // d) * -(-W // d) * int(widths.max()) <= _FUSED_ENC_MAX_SLICE
+
+    def _fused_encode_walk(self, mode, inputs):
+        """The encode a fused tier captures into one CUDA graph: "full"
+        takes (x,), the NHWC input image, and runs normalisation, analysis,
+        z quantization and hyper synthesis, then the walk unpinned (as the
+        JAX full program leaves it); "split" takes (y, lm, ls, z tail) made
+        eagerly and runs the walk pinned by `lc.layout_pin`. Reads nothing
+        back to the host. Returns (meta, per-slice B3 banks (words, side,
+        states), per-slice NHWC symbols, indexes, and z's int32 symbols, or
+        None in "split"); meta is `_lane_meta` with the `_z_tail`."""
+        if mode == "full":
+            (x,) = inputs
+            y, z = self.model.analyze(self._normalize(x))
+            z_sym, z_sym8, z_overflow, z_hat = _z_quantize_math(z, self._medians)
+            lm, ls = self.model.hyper_synthesize(z_hat, (y.shape[2], y.shape[3]))
+            z_tail = _z_tail(z_sym8, z_overflow)
+            pin = lambda t: t  # noqa: E731
+        else:
+            y, lm, ls, z_tail = inputs
+            z_sym, pin = None, lc.layout_pin
+        symbols, indexes, banks, hashes = self._encode_walk(y, lm, ls, pin)
+        return (_lane_meta(banks, hashes, [z_tail]), [b[:3] for b in banks],
+                symbols, indexes, z_sym)
+
+    def _capture_encode(self, mode, inputs):
+        """(graph, static inputs, pinned staging buffers, static outputs,
+        kernel launches per replay) of `mode`'s encode. Each static input
+        has its eager tensor's shape, dtype and strides, so the captured
+        walk computes on the layouts the per-slice compress computes on.
+        An input on the host (the full tier's image) gets a pinned buffer
+        of its own that it is staged through at every replay."""
+        statics = [
+            torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                device=self.device).copy_(t)
+            for t in inputs
+        ]
+        staging = [
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if t.device.type == "cpu" else None
+            for t in inputs
+        ]
+        graph, out, launched = self._capture_graph(
+            lambda: self._fused_encode_walk(mode, statics)
+        )
+        return graph, statics, staging, out, launched
+
+    def _compress_fused(self, x) -> Optional[Dict[str, Any]]:
+        """The lane compress through the fused tier `self._fused_mode`:
+        one graph replay (eager on CPU tensors, through the kernels' plain
+        versions), one fetch of the meta vector, the stream built with the
+        fused-encode flag. None when the input is past the size guard, a
+        segment overflowed B3's side channel, or the split tier's
+        self-check failed: the caller then runs the per-slice compress.
+        A capture or launch failure raises."""
+        if not self._fused_fits(x.shape):
+            return None
+        model, mode = self.model, self._fused_mode
+        x = _as_tensor(x)
+        if mode == "full":
+            inputs = (x,)
+        else:  # analysis, z and hyper as the per-slice compress runs them
+            y, z = model.analyze(self._to_device_image(x))
+            z_sym, z_sym8, z_overflow, z_hat = _z_quantize_math(z, self._medians)
+            lm, ls = model.hyper_synthesize(z_hat, (y.shape[2], y.shape[3]))
+            inputs = (y, lm, ls, _z_tail(z_sym8, z_overflow))
+        key = (mode, tuple(x.shape), x.dtype)
+        if self.device.type == "cpu":
+            meta, banks, symbols, indexes, z_out = self._fused_encode_walk(
+                mode, inputs
+            )
+        else:
+            graph, statics, staging, out, launched = self._cached_graph(
+                self._enc_graphs, key,
+                lambda: self._capture_encode(mode, inputs),
+            )
+            # a staging buffer is free again: every call waits for its
+            # replay (the meta fetch) before it returns
+            for static, pinned, t in zip(statics, staging, inputs):
+                static.copy_(t if pinned is None else pinned.copy_(t),
+                             non_blocking=True)
+            graph.replay()
+            _native.launch_counts.update(launched)
+            meta, banks, symbols, indexes, z_out = out
+            # the next replay overwrites the graph's outputs
+            symbols = [s.clone() for s in symbols]
+            indexes = [i.clone() for i in indexes]
+        if mode == "full":
+            z_sym = z_out
+        S = model.num_slices
+        counts, hashes, z_tail = _split_meta(meta.cpu().numpy(), S)
+        try:
+            blob, _ = self._build_lane_stream(
+                counts, hashes, banks, symbols, indexes,
+                flags=_LANE_FLAG_FUSED_ENC,
+            )
+        except _LaneSideOverflow:
+            return None
+        B, _, zh, zw = z_sym.shape
+        if z_tail[0]:  # a z symbol left int8: fetch the int32 copy
+            z_np = z_sym.permute(0, 2, 3, 1).cpu().numpy()
+        else:
+            z_np = z_tail[1:].view(np.int8)[:z_sym.numel()].reshape(B, zh, zw, -1)
+        out = {
+            "strings": [[blob], self.eb_coder.compress_symbols(z_np)],
+            "shape": (zh, zw),
+            "symbols": symbols,
+            "indexes": indexes,
+            "host_encoded": 0,
+        }
+        if self.fused_verify and key not in self._enc_verified:
+            # the first stream of a configuration must decode before it
+            # leaves: its indexes come from a graph no decoder replays
+            try:
+                self.decompress(out["strings"], out["shape"])
+            except (ValueError, IndexError, KeyError, struct.error):
+                if mode == "full":
+                    warnings.warn(
+                        "fused encode self-check FAILED: no decoder derives "
+                        "the full tier's scale indexes for this "
+                        "configuration; demoting to the split tier and "
+                        "encoding again", RuntimeWarning,
+                    )
+                    self._fused_mode = "split"
+                    return self._compress_fused(x)
+                warnings.warn(
+                    "fused encode self-check FAILED: no decoder derives the "
+                    "split tier's scale indexes for this configuration; "
+                    "disabling the fused encode and encoding again with "
+                    "the per-slice walk", RuntimeWarning,
+                )
+                self.fused_encode = False
+                return None
+            self._enc_verified.add(key)
+        return out
+
+    def _cached_graph(self, graphs, key, capture):
+        """graphs[key], captured by `capture()` if absent, kept as the
+        most recently used; the least recently used past `_GRAPH_CACHE`
+        goes."""
+        entry = graphs.pop(key, None)
+        if entry is None:
+            entry = capture()
+        graphs[key] = entry
+        if len(graphs) > _GRAPH_CACHE:
+            graphs.popitem(last=False)
+        return entry
+
+    def _capture_graph(self, fn):
+        """Run `fn` once eagerly (loads every kernel, fills cuDNN's
+        handles and the layers' caches), then capture it: (graph, its
+        static outputs, kernel launches per replay). The launch counts are
+        Python-side, so they move at capture only: the capture's
+        increments are taken back, and the caller adds them at every
+        replay.
+
+        Every graph allocates in the codec's one memory pool. Graphs run
+        one at a time on one stream, and a replay's outputs are read or
+        cloned out before the next replay of that graph, so a graph may
+        reuse what another's intermediates held; each graph's own outputs
+        stay allocated."""
+        fn()
+        torch.cuda.synchronize(self.device)
+        counts = _native.launch_counts
+        before = collections.Counter(counts)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            out = fn()
+        launched = counts - before
+        counts.subtract(launched)
+        return graph, out, launched
+
     # -- decompress ----------------------------------------------------------
 
     def _lane_segments(self, blob: bytes, S: int):
-        """Parse a lane y-stream: (encoder index hashes, segments)."""
+        """Parse a lane y-stream: (header flags, encoder index hashes,
+        segments)."""
         if len(blob) < 4 + 4 * S:
             raise ValueError(
                 f"lane y-stream is {len(blob)} bytes — shorter than its "
@@ -371,7 +665,7 @@ class Codec:
                 f"lane stream has {len(segments)} segments, expected {S} "
                 "(num_slices mismatch, or a pipeline > 1 stream)"
             )
-        return hashes, segments
+        return header & 0xFF, hashes, segments
 
     def _upload_segment(self, seg):
         wr = _bucket(lc.words_rows_for(seg.word_counts.max()))
@@ -484,13 +778,9 @@ class Codec:
                 key, torch.from_numpy(buf)
             )
         else:
-            entry = self._graphs.pop(key, None)
-            if entry is None:
-                entry = self._capture(key, buf)
-            self._graphs[key] = entry  # the most recently used is last
-            if len(self._graphs) > _GRAPH_CACHE:
-                self._graphs.popitem(last=False)
-            graph, static_buf, out, launched = entry
+            graph, static_buf, out, launched = self._cached_graph(
+                self._graphs, key, lambda: self._capture(key, buf)
+            )
             staged = torch.from_numpy(buf).pin_memory()
             static_buf[: buf.size].copy_(staged, non_blocking=True)
             graph.replay()
@@ -510,15 +800,8 @@ class Codec:
         return None
 
     def _capture(self, key, buf):
-        """Warm up and capture the fused walk for `key`: (graph, static
-        input buffer, static outputs, kernel launches per replay). The
-        launch counts are Python-side, so they move at capture only: the
-        capture's increments are taken back and added at every replay.
-
-        Every graph allocates in the codec's one memory pool. Graphs run
-        one at a time on one stream, and a replay's outputs are cloned out
-        before the next replay, so a graph may reuse what another's
-        intermediates held; each graph's own outputs stay allocated."""
+        """(graph, static input buffer, static outputs, kernel launches per
+        replay) of the fused walk for `key`."""
         y_shape, wr, sr, ns, z_shape, z_is_sym = key
         G, K = lc.GROUPS, lc.K
         zn = int(np.prod(z_shape))
@@ -532,17 +815,9 @@ class Codec:
             capacity, dtype=torch.int32, device=self.device
         )
         static_buf[: buf.size].copy_(torch.from_numpy(buf))
-        self._fused_walk(key, static_buf)  # eager warm-up
-        torch.cuda.synchronize(self.device)
-        counts = _native.launch_counts
-        before = collections.Counter(counts)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            out = self._fused_walk(key, static_buf)
-        launched = counts - before
-        counts.subtract(launched)
+        graph, out, launched = self._capture_graph(
+            lambda: self._fused_walk(key, static_buf)
+        )
         return graph, static_buf, out, launched
 
     @torch.inference_mode()
@@ -559,7 +834,7 @@ class Codec:
 
         lane = self.coder == "lane"
         if lane:
-            enc_hashes, segments = self._lane_segments(
+            flags, enc_hashes, segments = self._lane_segments(
                 y_strings[0] if len(y_strings) else b"", S
             )
             if self.fused:
@@ -610,6 +885,14 @@ class Codec:
         if lane:
             got = torch.stack(dec_hashes).cpu().numpy()
             if not np.array_equal(got, enc_hashes):
+                if flags & _LANE_FLAG_FUSED_ENC and not self.fused:
+                    # a fused encode tier derived this stream's indexes;
+                    # the fused walk, not tried yet, may derive them too
+                    out = self._fused_decompress(
+                        z_sym, y_shape, segments, enc_hashes
+                    )
+                    if out is not None:
+                        return out
                 bad = np.flatnonzero(got != enc_hashes).tolist()
                 raise ValueError(
                     "lane decode derived different scale indexes than the "

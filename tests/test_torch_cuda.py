@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-fused decompress's graph replays, on the card. Marked `cuda`; they skip
-where torch sees no CUDA device. They import no JAX, so on a machine
-without it they run with
+graph replays of the fused decompress and the fused encode tiers, on the
+card. Marked `cuda`; they skip where torch sees no CUDA device. They
+import no JAX, so on a machine without it they run with
 `python -m pytest --noconftest -q tests/test_torch_cuda.py`."""
 
 import numpy as np
@@ -435,3 +435,113 @@ def test_fused_graphs_share_one_pool_and_stay_bounded(dev):
     codec.fused = False
     walk = codec.decompress(encs[0]["strings"], encs[0]["shape"])
     assert torch.equal(again["x_hat"], walk["x_hat"])
+
+
+def _lane_launches(before):
+    """{kernel: launches} since the `before` snapshot of the counts."""
+    return {k: v - before.get(k, 0) for k, v in _native.launch_counts.items()
+            if v - before.get(k, 0)}
+
+
+@pytest.mark.parametrize("size", [(64, 64), (128, 192)], ids=str)
+@pytest.mark.parametrize("tier", [True, "split"], ids=str)
+def test_fused_encode_replay_gives_the_per_slice_stream(dev, tier, size):
+    """A tier's first compress captures its graph and decodes the stream
+    (self-check); the second replays the graph. Both give the per-slice
+    stream from byte 1 on, with the fused-encode flag, and the tier is
+    not demoted. A replay call launches B1 twice (analysis), B3 once a
+    slice, and B4 3S + 1 times in the split tier's pinned walk."""
+    import warnings
+
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model("cnn", seed=0)
+    x = _pattern(*size)
+    want = Codec(model, coder="lane", device=dev).compress(x)
+    codec = Codec(model, coder="lane", device=dev, fused_encode=tier)
+    S = model.num_slices
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        first = codec.compress(x)
+        before = dict(_native.launch_counts)
+        again = codec.compress(x)
+    replay = _lane_launches(before)
+    for enc in (first, again):
+        y, y_want = enc["strings"][0][0], want["strings"][0][0]
+        assert y[0] == y_want[0] | 1 and y[1:] == y_want[1:]
+        assert enc["strings"][1] == want["strings"][1]
+        for a, b in zip(enc["symbols"], want["symbols"]):
+            assert torch.equal(a, b)
+    assert codec.fused_encode and codec._fused_mode == (
+        "full" if tier is True else "split")
+    assert len(codec._enc_graphs) == 1
+    b1 = sum(v for k, v in replay.items() if k.startswith("window_attention"))
+    assert b1 == 2  # split: in its eager analysis, outside the graph
+    assert replay.get("lane_encode", 0) == S
+    assert replay.get("lane_decode", 0) == 0
+    assert replay.get("layout_pin", 0) == (0 if tier is True else 3 * S + 1)
+
+
+def test_consecutive_fused_compresses_are_independent(dev):
+    """Full-tier compresses of three different images replay one graph:
+    each gives its own per-slice stream, and an earlier call's symbols
+    survive the later replays (outputs are cloned out of the graph)."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model("cnn", seed=0)
+    with torch.no_grad():
+        model.g_a[7].weight.mul_(100)  # streams that differ (see above)
+    lane = Codec(model, coder="lane", device=dev)
+    codec = Codec(model, coder="lane", device=dev, fused_encode=True)
+    encs = [codec.compress(_pattern(64, 64, k)) for k in range(3)]
+    assert len(codec._enc_graphs) == 1
+    assert len({e["strings"][0][0] for e in encs}) == 3
+    for k, e in enumerate(encs):
+        want = lane.compress(_pattern(64, 64, k))
+        assert e["strings"][0][0][1:] == want["strings"][0][0][1:]
+        for a, b in zip(e["symbols"] + e["indexes"],
+                        want["symbols"] + want["indexes"]):
+            assert torch.equal(a, b)
+
+
+def test_encode_and_decode_graphs_share_one_pool_and_stay_bounded(dev):
+    """Full-tier compresses at six geometries: each captures an encode
+    graph and, in its self-check, a decode graph, all in the codec's one
+    pool. Each kind keeps `_GRAPH_CACHE`; the five later geometries
+    (each no larger than the first) reserve less device memory together
+    than the first did. The first geometry, its graph dropped, is
+    captured again and gives the same stream. `update()` drops every
+    graph and the record of checked configurations."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.models.codec import _GRAPH_CACHE
+    from stf_tpu_torch.zoo import create_model
+
+    codec = Codec(create_model("cnn", seed=0), coder="lane", device=dev,
+                  fused_encode=True)
+    sizes = [(128, 128), (64, 192), (192, 64), (128, 64), (64, 128), (64, 64)]
+
+    def settled():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    reserved = [settled()]
+    encs = []
+    for h, w in sizes:
+        encs.append(codec.compress(_pattern(h, w)))
+        reserved.append(settled())
+    print(f"reserved MiB by compress: {[r / 2**20 for r in reserved]}")
+    assert len(codec._enc_graphs) == len(codec._graphs) == _GRAPH_CACHE
+    first, later = reserved[1] - reserved[0], reserved[-1] - reserved[1]
+    assert later < first, (first, later)
+    assert codec._fused_mode == "full" and len(codec._enc_verified) == 6
+    again = codec.compress(_pattern(*sizes[0]))
+    assert again["strings"] == encs[0]["strings"]
+    assert len(codec._enc_graphs) == _GRAPH_CACHE
+    codec.update()
+    assert not codec._enc_graphs and not codec._graphs
+    assert not codec._enc_verified
+    assert codec.compress(_pattern(*sizes[0]))["strings"] == encs[0]["strings"]
+    assert len(codec._enc_graphs) == len(codec._enc_verified) == 1
