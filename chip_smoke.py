@@ -38,7 +38,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the path (compress: 10 B3 launches; fused decompress: one graph
      replay, 10 B2 and 32 B4 launches, 21 of them on B4's packed path and
      11 on its transpose path, no hash fallback; a tier's replay: 10 B3
-     launches, and 31 packed B4 pins in the split tier). It ends with
+     launches and no B4 pin). It ends with
      warm medians of each compress and decompress and the device-busy
      share of one warm call of each compress.
 
@@ -733,7 +733,7 @@ def phase_codec(dev, smi):
     # compress runs its walk eagerly (warm-up), captures it (counts taken
     # back) and replays it, then its self-check's fused decompress does the
     # same (B1 2 + 2, B2 S + S, B4 32 + 32); the split tier's analysis runs
-    # eagerly once a call (B1 2) and its walk pins 3S + 1 operands.
+    # eagerly once a call (B1 2). Neither tier's walk pins.
     (full_first, full_replay, full_dec), _, _, _ = tier_steps["full"]
     (split_first, split_replay, split_dec), _, _, _ = tier_steps["split"]
     want = (
@@ -746,8 +746,8 @@ def phase_codec(dev, smi):
         (full_first, 4 + 4, 2 * S, 2 * S, 64),
         (full_replay, 2, 0, S, 0),
         (full_dec, 2, S, 0, 32),
-        (split_first, 2 + 4, 2 * S, 2 * S, 2 * (3 * S + 1) + 64),
-        (split_replay, 2, 0, S, 3 * S + 1),
+        (split_first, 2 + 4, 2 * S, 2 * S, 64),
+        (split_replay, 2, 0, S, 0),
         (split_dec, 2, S, 0, 32),
     )
     for step, *expect in want:
@@ -758,14 +758,13 @@ def phase_codec(dev, smi):
             raise AssertionError(f"{step}: B1/B2/B3/B4 launches {got}, want {expect}")
     # B4's 32 pins per fused walk by path: z_hat and the S rv are NHWC
     # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
-    # (the tiers' stream decodes likewise); the split tier's 3S + 1 pins
-    # (lm, ls, every mu and q, the S - 1 y_prev) are all packed
-    for step, reps, enc_reps in (
-        (first, 2, 0), (fused, 1, 0), (full_first, 2, 0), (full_dec, 1, 0),
-        (split_first, 2, 2), (split_replay, 0, 1), (split_dec, 1, 0),
+    # (the tiers' stream decodes and self-checks likewise)
+    for step, reps in (
+        (first, 2), (fused, 1), (full_first, 2), (full_dec, 1),
+        (split_first, 2), (split_dec, 1),
     ):
         got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
-        want = {"packed": reps * (2 * S + 1) + enc_reps * (3 * S + 1),
+        want = {"packed": reps * (2 * S + 1),
                 "transpose": reps * (S + 1), "general": 0}
         print(f"B4 pins by path in {step}: {got}")
         if got != want:

@@ -27,10 +27,10 @@ Lane compress has the JAX codec's fused encode tiers (`fused_encode`):
 "full" replays one CUDA graph of the whole encode (normalise, analysis, z
 quantization, hyper synthesis, the walk with B3 per slice); "split" runs
 analysis, z quantization and hyper synthesis eagerly, as the per-slice
-compress does, and replays one graph of the walk (pinned by B4 where the
-JAX split program pins it). Their streams set the header's fused-encode
-flag. The first stream of each configuration is decoded before compress
-returns it; a failure demotes full -> split -> the per-slice walk.
+compress does, and replays one graph of the walk. Their streams set the
+header's fused-encode flag. The first stream of each configuration is
+decoded before compress returns it; a failure demotes full -> split ->
+the per-slice walk.
 
 Stream layout matches the JAX codec at pipeline=1: host y-streams are per
 image (slices 0..S-1 in NHWC C-order); the lane y-stream is the u32 header
@@ -100,18 +100,17 @@ def _nhwc_flat(t: torch.Tensor) -> torch.Tensor:
 
 def _z_quantize_math(z, medians):
     """z quantization, shared by the per-slice compress and the fused
-    encode tiers: (int32 symbols, their int8 copy, a device flag set when
-    a symbol leaves int8, z_hat). z_hat = symbols + medians in f32, the
-    op the decoder runs on the same values."""
+    encode tiers: (int32 symbols, z_hat). z_hat = symbols + medians in
+    f32, the op the decoder runs on the same values."""
     sym32 = torch.round(z.to(torch.float32) - medians).to(torch.int32)
+    return sym32, sym32.to(torch.float32) + medians
+
+
+def _z_tail(sym32):
+    """int32 [a flag set when a z symbol leaves int8, then z's int8 NHWC
+    symbols, 4 a word]: the end of a fused tier's meta vector."""
     sym8 = sym32.clamp(-128, 127).to(torch.int8)
     overflow = (sym32 != sym8.to(torch.int32)).any()
-    return sym32, sym8, overflow, sym32.to(torch.float32) + medians
-
-
-def _z_tail(sym8, overflow):
-    """int32 [overflow flag, then z's int8 NHWC symbols, 4 a word]: the
-    end of a fused tier's meta vector."""
     flat = _nhwc_flat(sym8)
     pad = -flat.numel() % 4
     if pad:
@@ -178,17 +177,16 @@ class Codec:
     shape, dtype), the last `_GRAPH_CACHE` kept in the same pool. Such a
     stream's indexes come from the captured walk, so its header carries
     the fused-encode flag and every decoder checks them against the
-    stream's hashes. With `fused_verify` (default True) compress decodes
-    the first stream of each configuration before returning it; on
-    failure it warns and demotes the tier (full -> split -> off) and
-    encodes again. Past `_FUSED_ENC_MAX_SLICE` symbols a slice, or when
-    a segment overflows B3's side channel, compress takes the per-slice
-    walk for that call, with no flag.
+    stream's hashes. Compress decodes the first stream of each
+    configuration before returning it; on failure it warns and demotes
+    the tier (full -> split -> off) and encodes again. Past
+    `_FUSED_ENC_MAX_SLICE` symbols a slice, or when a segment overflows
+    B3's side channel, compress takes the per-slice walk for that call,
+    with no flag.
     """
 
     def __init__(self, model, scale_table: Optional[np.ndarray] = None,
-                 coder: str = "host", device=None, fused_encode=False,
-                 fused_verify: bool = True):
+                 coder: str = "host", device=None, fused_encode=False):
         if coder not in ("host", "lane"):
             raise ValueError(f"unknown entropy coder {coder!r}")
         if fused_encode not in (False, True, "split"):
@@ -198,7 +196,6 @@ class Codec:
         self.fused = True
         self.fused_encode = bool(fused_encode) and coder == "lane"
         self._fused_mode = "split" if fused_encode == "split" else "full"
-        self.fused_verify = bool(fused_verify)
         self.device = default_device() if device is None else torch.device(device)
         # one fixed numerical policy, so encoder and decoder agree bitwise
         torch.backends.cudnn.benchmark = False
@@ -261,10 +258,10 @@ class Codec:
         int32 NCHW symbols of slice i, from quantization (encoder) or from
         the stream (decoder). Both sides run exactly this walk;
         `need_y_hat=False` (the encoder) skips the last slice's apply, which
-        feeds nothing the encoder reads. The fused decompress and the split
-        encode tier pass `pin=lc.layout_pin`, which copies every operand
-        at the positions where the JAX codec's fused walk
-        (`_traced_walk`) pins them; the copies change no value. On CUDA
+        feeds nothing the encoder reads. The fused decompress passes
+        `pin=lc.layout_pin`, which copies every operand at the positions
+        where the JAX codec's fused walk (`_traced_walk`) pins them; the
+        copies change no value. On CUDA
         the pins of rv (an NHWC tensor viewed as NCHW) give it packed NCHW
         strides (kernel B4's transpose path); lm/ls (crops of the hyper
         outputs that keep every element, since y_shape is 4 x z), mu and
@@ -304,7 +301,7 @@ class Codec:
         uint8 normalizes on the device (1 byte/pixel crosses)."""
         return self._normalize(_as_tensor(x).to(self.device))
 
-    def _encode_walk(self, y, latent_means, latent_scales, pin=lambda t: t):
+    def _encode_walk(self, y, latent_means, latent_scales):
         """The encoder's walk on NCHW y: per-slice NHWC int32 symbols and
         indexes, and for the lane coder each slice's B3 outputs (words,
         side, states, counts) and index hash (an int64 device scalar).
@@ -328,7 +325,7 @@ class Codec:
                 hashes.append(idx_hash(idx_flat))
             return q
 
-        self._walk_slices(latent_means, latent_scales, get_symbols, pin=pin,
+        self._walk_slices(latent_means, latent_scales, get_symbols,
                           need_y_hat=False)
         return symbols, indexes, banks, hashes
 
@@ -348,7 +345,9 @@ class Codec:
                 return out
         model = self.model
         y, z = model.analyze(self._to_device_image(x))
-        z_sym, _, _, z_hat = _z_quantize_math(z, self._medians)
+        if self.fused_encode:
+            self._check_latent(x.shape, y)
+        z_sym, z_hat = _z_quantize_math(z, self._medians)
         latent_means, latent_scales = model.hyper_synthesize(
             z_hat, (y.shape[2], y.shape[3])
         )
@@ -461,35 +460,53 @@ class Codec:
 
     # -- fused encode tiers ---------------------------------------------------
 
+    def _latent_hw(self, x_shape):
+        """y's (height, width) for a (B, H, W, 3) input, from its shape:
+        the analysis's `analysis_downsample` rounded up."""
+        d = self.model.analysis_downsample
+        return -(-x_shape[1] // d), -(-x_shape[2] // d)
+
+    def _check_latent(self, x_shape, y):
+        """Holds the analysis's real y against `_latent_hw`, on which the
+        size guard (and so the header flag) decides; a codec with a fused
+        tier checks every compress."""
+        if tuple(y.shape[2:]) != self._latent_hw(x_shape):
+            raise RuntimeError(
+                f"analysis gave y of {tuple(y.shape[2:])} for a "
+                f"{tuple(x_shape[1:3])} input, not {self._latent_hw(x_shape)}: "
+                "the model's analysis_downsample is wrong"
+            )
+
     def _fused_fits(self, x_shape) -> bool:
         """Whether a (B, H, W, 3) input's largest slice holds at most
         `_FUSED_ENC_MAX_SLICE` symbols, from its shape alone."""
-        model = self.model
-        B, H, W = x_shape[:3]
-        d, M = model.analysis_downsample, model.M
+        model, M = self.model, self.model.M
+        yh, yw = self._latent_hw(x_shape)
         widths = np.diff([0] + model.slice_boundaries(M) + [M])
-        return B * -(-H // d) * -(-W // d) * int(widths.max()) <= _FUSED_ENC_MAX_SLICE
+        return x_shape[0] * yh * yw * int(widths.max()) <= _FUSED_ENC_MAX_SLICE
 
     def _fused_encode_walk(self, mode, inputs):
         """The encode a fused tier captures into one CUDA graph: "full"
         takes (x,), the NHWC input image, and runs normalisation, analysis,
-        z quantization and hyper synthesis, then the walk unpinned (as the
-        JAX full program leaves it); "split" takes (y, lm, ls, z tail) made
-        eagerly and runs the walk pinned by `lc.layout_pin`. Reads nothing
-        back to the host. Returns (meta, per-slice B3 banks (words, side,
-        states), per-slice NHWC symbols, indexes, and z's int32 symbols, or
-        None in "split"); meta is `_lane_meta` with the `_z_tail`."""
+        z quantization and hyper synthesis, then the walk; "split" takes
+        (y, lm, ls, z tail) made eagerly and runs the walk. Both run the
+        per-slice compress's walk, unpinned: every operand there is packed
+        already, so a pin would change no value and no stride. Reads
+        nothing back to the host. Returns (meta, per-slice B3 banks
+        (words, side, states), per-slice NHWC symbols, indexes, and z's
+        int32 symbols, or None in "split"); meta is `_lane_meta` with the
+        `_z_tail`."""
         if mode == "full":
             (x,) = inputs
             y, z = self.model.analyze(self._normalize(x))
-            z_sym, z_sym8, z_overflow, z_hat = _z_quantize_math(z, self._medians)
+            self._check_latent(x.shape, y)
+            z_sym, z_hat = _z_quantize_math(z, self._medians)
             lm, ls = self.model.hyper_synthesize(z_hat, (y.shape[2], y.shape[3]))
-            z_tail = _z_tail(z_sym8, z_overflow)
-            pin = lambda t: t  # noqa: E731
+            z_tail = _z_tail(z_sym)
         else:
             y, lm, ls, z_tail = inputs
-            z_sym, pin = None, lc.layout_pin
-        symbols, indexes, banks, hashes = self._encode_walk(y, lm, ls, pin)
+            z_sym = None
+        symbols, indexes, banks, hashes = self._encode_walk(y, lm, ls)
         return (_lane_meta(banks, hashes, [z_tail]), [b[:3] for b in banks],
                 symbols, indexes, z_sym)
 
@@ -531,9 +548,10 @@ class Codec:
             inputs = (x,)
         else:  # analysis, z and hyper as the per-slice compress runs them
             y, z = model.analyze(self._to_device_image(x))
-            z_sym, z_sym8, z_overflow, z_hat = _z_quantize_math(z, self._medians)
+            self._check_latent(x.shape, y)
+            z_sym, z_hat = _z_quantize_math(z, self._medians)
             lm, ls = model.hyper_synthesize(z_hat, (y.shape[2], y.shape[3]))
-            inputs = (y, lm, ls, _z_tail(z_sym8, z_overflow))
+            inputs = (y, lm, ls, _z_tail(z_sym))
         key = (mode, tuple(x.shape), x.dtype)
         if self.device.type == "cpu":
             meta, banks, symbols, indexes, z_out = self._fused_encode_walk(
@@ -578,7 +596,7 @@ class Codec:
             "indexes": indexes,
             "host_encoded": 0,
         }
-        if self.fused_verify and key not in self._enc_verified:
+        if key not in self._enc_verified:
             # the first stream of a configuration must decode before it
             # leaves: its indexes come from a graph no decoder replays
             try:

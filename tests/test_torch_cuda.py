@@ -449,8 +449,8 @@ def test_fused_encode_replay_gives_the_per_slice_stream(dev, tier, size):
     """A tier's first compress captures its graph and decodes the stream
     (self-check); the second replays the graph. Both give the per-slice
     stream from byte 1 on, with the fused-encode flag, and the tier is
-    not demoted. A replay call launches B1 twice (analysis), B3 once a
-    slice, and B4 3S + 1 times in the split tier's pinned walk."""
+    not demoted. A replay call launches B1 twice (analysis; eager in the
+    split tier) and B3 once a slice; neither tier's walk pins."""
     import warnings
 
     from stf_tpu_torch.models import Codec
@@ -480,7 +480,7 @@ def test_fused_encode_replay_gives_the_per_slice_stream(dev, tier, size):
     assert b1 == 2  # split: in its eager analysis, outside the graph
     assert replay.get("lane_encode", 0) == S
     assert replay.get("lane_decode", 0) == 0
-    assert replay.get("layout_pin", 0) == (0 if tier is True else 3 * S + 1)
+    assert replay.get("layout_pin", 0) == 0
 
 
 def test_consecutive_fused_compresses_are_independent(dev):

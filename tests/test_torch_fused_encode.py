@@ -151,11 +151,6 @@ def test_only_the_first_stream_of_a_configuration_is_checked(setup,
     assert len(calls) == 1
     full.compress(x.astype(np.float32) / 255.0)
     assert len(calls) == 2
-    unchecked = Codec(setup["port"], coder="lane", device="cpu",
-                      fused_encode=True, fused_verify=False)
-    monkeypatch.setattr(unchecked, "decompress",
-                        lambda *a: pytest.fail("fused_verify=False decoded"))
-    assert unchecked.compress(x)["strings"] == first["strings"]
 
 
 def test_fused_encode_options(setup):
@@ -247,6 +242,21 @@ def test_per_slice_decode_retries_the_fused_decoder(setup, monkeypatch):
                                  enc["shape"])
     finally:
         codec.fused = True
+
+
+@pytest.mark.parametrize("tier", TIERS, ids=str)
+def test_a_wrong_analysis_downsample_fails_loudly(setup, monkeypatch, tier):
+    """The size guard reads y's shape off `analysis_downsample`; a model
+    whose analysis disagrees fails its first compress rather than set
+    the header flag where the JAX codec would not. A codec without a
+    fused tier never reads it."""
+    port, x = setup["port"], setup["x"]
+    codec = Codec(port, coder="lane", device="cpu", fused_encode=tier)
+    monkeypatch.setattr(port, "analysis_downsample", 8)
+    with pytest.raises(RuntimeError, match="analysis_downsample"):
+        codec.compress(x)
+    lane = Codec(port, coder="lane", device="cpu")
+    assert lane.compress(x)["strings"] == setup["enc"]["strings"]
 
 
 def test_size_guard_from_shapes_only(setup):

@@ -15,8 +15,10 @@ share (sum of kernel self times over wall time) and device time by
 kernel, largest first. With --rounds N it profiles nothing: it times N
 warm lane compresses each of the per-slice walk and the full and split
 tiers, alternated (host clock around synchronised calls), after each
-tier's replay alone (CUDA events) and the host's work after it (stream
-assembly with the tails fetch, z coding). Needs a CUDA card.
+tier's replay alone (CUDA events), the host's work before it (staging
+x through the full tier's pinned buffer, against a fresh `pin_memory()`
+of x) and after it (stream assembly with the tails fetch, z coding).
+Needs a CUDA card.
 """
 
 import argparse
@@ -141,7 +143,18 @@ def compare_encode_paths(x, rounds):
             )) for _ in range(5)]
             print(f"{name} tier: replay device {spread(dev)}; stream "
                   f"assembly after it (tails fetch, host) {spread(build)}")
-        z_sym = next(iter(codecs["full"]._enc_graphs.values()))[3][4]
+        _, statics, staging, out, _ = next(
+            iter(codecs["full"]._enc_graphs.values()))
+        xt = torch.from_numpy(x)
+        stage = [call_ms(lambda: statics[0].copy_(staging[0].copy_(xt),
+                                                  non_blocking=True))
+                 for _ in range(5)]
+        fresh = [call_ms(lambda: statics[0].copy_(xt.pin_memory(),
+                                                  non_blocking=True))
+                 for _ in range(5)]
+        print(f"staging x (host to card): through the kept pinned buffer "
+              f"{spread(stage)}; through a fresh pin_memory() {spread(fresh)}")
+        z_sym = out[4]
         z_np = z_tail[1:].view(np.int8)[:z_sym.numel()].reshape(
             z_sym.shape[0], z_sym.shape[2], z_sym.shape[3], -1)
         z_ms = [call_ms(lambda: codecs["full"].eb_coder.compress_symbols(z_np))
