@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the four CUDA kernels (nvcc, sm_90a) and the rANS library from
      the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
-     WACNN's two attention geometries for batch 2 with shift labels, two
+     WACNN's two attention geometries and STF's four stage geometries
+     (window 4, head width 16) for batch 2 with shift labels, two
      launches bit-equal, timed beside SDPA with the same mask; with the
-     bias x30, no farther than the f32 plain version from an f64 one;
+     bias x30, no farther than the f32 plain version from an f64 one, at
+     the first geometry of each of the three instances;
   4. kernel B2 (lane-rANS decode) against its plain version and the
      encoded symbols, on seeded streams with 1% escapes at the main path's
      98,304 symbols a slice (banks bucketed as the codec buckets them) and
@@ -40,7 +42,13 @@ Phases (any failure exits non-zero; nothing is caught):
      11 on its transpose path, no hash fallback; a tier's replay: 10 B3
      launches and no B4 pin). It ends with
      warm medians of each compress and decompress and the device-busy
-     share of one warm call of each compress.
+     share of one warm call of each compress;
+  8. the same phase, with the same checks, for a full-width STF (embed 48,
+     depths 2/2/6/2, heads 3/6/12/24, window 4, M=384, 12 slices): B1 runs
+     12 times an analysis and 12 times a synthesis, B4 38 times a fused
+     walk (25 packed, 13 transpose). Each path's launch counts are set to
+     0 just before it and read just after; B1's STF row takes its
+     launches from the STF path, every other row from WACNN's.
 
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
@@ -70,9 +78,20 @@ BATCH, HEIGHT, WIDTH = 2, 512, 768
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ATTN_TOL = 1e-5
-# (feature map, channels, window) of WACNN's g_a/g_s attention blocks at a
-# 512x768 input; 8 heads
-ATTN_GEOMS = (((128, 192), 192, 8), ((32, 48), 320, 4))
+# (model, feature map, channels, window, heads) of every attention geometry
+# at a 512x768 input: WACNN's g_a/g_s blocks, and STF's four Swin stages
+# (head width 16 throughout). The first geometry of each (window, head
+# width) is that kernel's row in the kernels line.
+ATTN_GEOMS = (
+    ("cnn", (128, 192), 192, 8, 8),
+    ("cnn", (32, 48), 320, 4, 8),
+    ("stf", (256, 384), 48, 4, 3),
+    ("stf", (128, 192), 96, 4, 6),
+    ("stf", (64, 96), 192, 4, 12),
+    ("stf", (32, 48), 384, 4, 24),
+)
+# B1 launches in one analysis (= in one synthesis) of each model
+B1_PER_TRANSFORM = {"cnn": 2, "stf": 12}
 
 
 def smooth_batch(n, h, w, seed):
@@ -191,7 +210,8 @@ def bound(nbytes, ops):
 
 
 def phase_attention(dev):
-    """B1 vs its plain version and SDPA at WACNN's two geometries."""
+    """B1 vs its plain version and SDPA at every model's attention
+    geometries."""
     import torch
     import torch.nn.functional as F
 
@@ -200,9 +220,8 @@ def phase_attention(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for (h, w), C, ws in ATTN_GEOMS:
-        nh, N = 8, ws * ws
-        hd = C // nh
+    for model, (h, w), C, ws, nh in ATTN_GEOMS:
+        N, hd = ws * ws, C // nh
         scale = hd ** -0.5
         qkv = torch.randn(BATCH, h, w, 3 * C, device=dev, generator=gen)
         bias = torch.randn(nh, N, N, device=dev, generator=gen)
@@ -213,11 +232,14 @@ def phase_attention(dev):
         plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
         torch.cuda.synchronize()
         again = ac.window_attention(qkv, bias, labels, ws, scale)
+        name = f"window_attention_ws{ws}_hd{hd}"
         err = (out - plain).abs().max().item()
         if not err <= ATTN_TOL:
-            raise AssertionError(f"B1 ws={ws}: max abs err {err} > {ATTN_TOL}")
+            raise AssertionError(f"B1 {name} {model} {h}x{w}: max abs err "
+                                 f"{err} > {ATTN_TOL}")
         if not torch.equal(out, again):
-            raise AssertionError(f"B1 ws={ws}: two launches differ")
+            raise AssertionError(f"B1 {name} {model} {h}x{w}: two launches "
+                                 "differ")
         q, k, v = ac.partition_qkv(qkv, ws, nh)
         nW = labels.shape[0]
         mask = (bias[None, None] + ac.shift_penalty(labels)[None, :, None])
@@ -236,43 +258,48 @@ def phase_attention(dev):
         nbytes = (qkv.numel() + out.numel() + bias.numel() + labels.numel()) * 4
         ops = 4 * N * N * hd * BATCH * nW * nh
         bound_ms, bound_by = bound(nbytes, ops)
-        name = f"window_attention_ws{ws}_hd{hd}"
-        print(f"B1 {name}: qkv {tuple(qkv.shape)} max_abs_err {err:.3g} "
-              f"deterministic "
-              f"(sdpa {lib_err:.3g}) kernel {ms:.4f} ms (eager per call "
-              f"{eager_ms:.4f} ms) plain {plain_ms:.4f} ms "
-              f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="stf_tpu_torch/csrc/window_attention.cu",
-            replaces="stf_tpu/layers/pallas_attention.py:49",
-            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-        ))
-    for ws, err, plain_err, diff in attention_vs_f64(dev, 30.0):
-        print(f"B1 ws={ws}, bias x30 (logits to ~+-100): max abs err against "
+        print(f"B1 {name} ({model}): qkv {tuple(qkv.shape)} max_abs_err "
+              f"{err:.3g} deterministic (sdpa {lib_err:.3g}) kernel {ms:.4f} ms "
+              f"(eager per call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms "
+              f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{100 * bound_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x sdpa")
+        if all(r["name"] != name for r in rows):
+            rows.append(dict(
+                name=name, route="cuda",
+                source="stf_tpu_torch/csrc/window_attention.cu",
+                replaces="stf_tpu/layers/pallas_attention.py:49",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                path=model,
+            ))
+    for name, err, plain_err, diff in attention_vs_f64(dev, 30.0):
+        print(f"B1 {name}, bias x30 (logits to ~+-100): max abs err against "
               f"an f64 plain version {err:.3g} (f32 plain version "
               f"{plain_err:.3g}; kernel against it {diff:.3g})")
         if not err <= min(ATTN_TOL, plain_err):
-            raise AssertionError(f"B1 ws={ws} bias x30: {err} from f64, plain "
+            raise AssertionError(f"B1 {name} bias x30: {err} from f64, plain "
                                  f"version {plain_err}")
     return rows
 
 
 def attention_vs_f64(dev, bias_scale):
-    """At both geometries (full maps, batch 2, shift labels) with the bias
-    scaled by `bias_scale`: the max abs error of B1 and of the f32 plain
-    version against the plain version computed in f64."""
+    """At the first geometry of each kernel (full maps, batch 2, shift
+    labels) with the bias scaled by `bias_scale`: the max abs error of B1
+    and of the f32 plain version against the plain version computed in
+    f64."""
     import torch
 
     from stf_tpu_torch.layers import attention_core as ac
     from stf_tpu_torch.layers import shifted_window_region_labels
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs = []
-    for (h, w), C, ws in ATTN_GEOMS:
-        nh, N = 8, ws * ws
-        scale = (C // nh) ** -0.5
+    errs, seen = [], set()
+    for _, (h, w), C, ws, nh in ATTN_GEOMS:
+        N, hd = ws * ws, C // nh
+        if (ws, hd) in seen:
+            continue
+        seen.add((ws, hd))
+        scale = hd ** -0.5
         qkv = torch.randn(BATCH, h, w, 3 * C, device=dev, generator=gen)
         bias = torch.randn(nh, N, N, device=dev, generator=gen) * bias_scale
         labels = torch.from_numpy(
@@ -282,7 +309,8 @@ def attention_vs_f64(dev, bias_scale):
                                         ws, scale)
         out = ac.window_attention(qkv, bias, labels, ws, scale)
         plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
-        errs.append((ws, (out.double() - ref).abs().max().item(),
+        errs.append((f"window_attention_ws{ws}_hd{hd}",
+                     (out.double() - ref).abs().max().item(),
                      (plain.double() - ref).abs().max().item(),
                      (out - plain).abs().max().item()))
     return errs
@@ -588,10 +616,32 @@ def host_lane_stream(codec, enc):
     )
 
 
-def phase_codec(dev, smi):
-    """The main path: full-width WACNN lane (B3 encode, fused and
-    per-slice decompress), host, and the two fused encode tiers' round
-    trips."""
+def smoke_model(name):
+    """The full-width registry model `name` with weights drawn from SEED.
+    For "stf" the scale stacks' last bias is lifted by 1: its seed weights
+    put every predicted scale at the table's floor (index 0, 0.11) while
+    y - mu spreads with std ~0.8, so at 512x768 one lane group of one
+    slice escapes past B3's side channel (~1/8 of its symbols) and every
+    codec, the JAX one too, codes that call through the per-slice walk:
+    the fused encode tiers would not run. A trained model predicts scales
+    near y's spread; the lift puts these at ~1, table index 18-19."""
+    import torch
+
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model(name, seed=SEED)
+    if name == "stf":
+        with torch.no_grad():
+            for stack in model.cc_scale_transforms:
+                stack[-1].bias += 1.0
+    return model
+
+
+def phase_codec(dev, smi, name):
+    """A main path: the full-width registry model `name` ("cnn" or "stf")
+    through the lane coder (B3 encode, fused and per-slice decompress),
+    the host coder, and the two fused encode tiers' round trips. Returns
+    the kernel launches of the path."""
     import warnings
 
     import numpy as np
@@ -601,10 +651,9 @@ def phase_codec(dev, smi):
     from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.models import Codec
     from stf_tpu_torch.utils import psnr
-    from stf_tpu_torch.zoo import create_model
 
     x = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round().astype(np.uint8)
-    model = create_model("cnn", seed=SEED)
+    model = smoke_model(name)
     lane = Codec(model, coder="lane", device=dev)
     host = Codec(model, coder="host", device=dev)
     tiers = {"full": Codec(model, coder="lane", device=dev, fused_encode=True),
@@ -612,6 +661,8 @@ def phase_codec(dev, smi):
                             fused_encode="split")}
     counts = _native.launch_counts
     S = model.num_slices
+    A = B1_PER_TRANSFORM[name]  # B1 launches an analysis (= a synthesis)
+    pins = 3 * S + 2  # B4 launches in a fused walk
 
     def timed(fn, *a):
         torch.cuda.synchronize()
@@ -651,7 +702,7 @@ def phase_codec(dev, smi):
         "fused decompress (replay)",
         "per-slice decompress",
     )
-    counts.clear()  # the main path starts here
+    counts.clear()  # this model's main path starts here
     enc = run("lane compress", lane.compress, x)
     dec = run(first, fused_strict, enc)
     henc = run("host compress", host.compress, x)
@@ -667,64 +718,66 @@ def phase_codec(dev, smi):
         tenc = run(steps_of[1], strict, codec.compress, x)
         tdec = run(steps_of[2], fused_strict, tenc, codec)
         tier_steps[tier] = steps_of, first_enc, tenc, tdec
-    launches = dict(counts)  # the main path ends here
+    launches = dict(counts)  # this model's main path ends here
     for step, d in steps.items():
-        print(f"launches in {step}: {d}")
+        print(f"{name}: launches in {step}: {d}")
 
-    for name, d in (("lane fused", dec), ("lane per-slice", wdec), ("fused", fdec)):
+    for what, d in (("lane fused", dec), ("lane per-slice", wdec), ("fused", fdec)):
         for i, (s, got) in enumerate(zip(enc["symbols"], d["symbols"])):
             if not torch.equal(s, got):
-                raise AssertionError(f"{name}: slice {i} decoded symbols differ")
+                raise AssertionError(f"{name} {what}: slice {i} decoded "
+                                     "symbols differ")
     for i, (s, d) in enumerate(zip(henc["symbols"], hdec["symbols"])):
         if not torch.equal(s, d):
-            raise AssertionError(f"host: slice {i} decoded symbols differ")
+            raise AssertionError(f"{name} host: slice {i} decoded symbols differ")
     if not all(torch.equal(a, b) for a, b in zip(enc["symbols"], henc["symbols"])):
-        raise AssertionError("lane and host walks quantized different symbols")
+        raise AssertionError(f"{name}: lane and host walks quantized different symbols")
     t0 = time.perf_counter()
     if enc["strings"][0][0] != host_lane_stream(lane, enc):
-        raise AssertionError("B3-encoded y-stream differs from the host lane encoder's")
+        raise AssertionError(f"{name}: B3-encoded y-stream differs from the host lane encoder's")
     host_lane_s = time.perf_counter() - t0
     if henc["strings"][1] != enc["strings"][1]:
-        raise AssertionError("lane and host codecs wrote different z strings")
+        raise AssertionError(f"{name}: lane and host codecs wrote different z strings")
     if enc["host_encoded"] == S:
-        raise AssertionError("every B3-encoded segment overflowed to the host")
-    for name, d in (("lane fused", dec), ("fused", fdec), ("per-slice", wdec)):
+        raise AssertionError(f"{name}: every B3-encoded segment overflowed to the host")
+    for what, d in (("lane fused", dec), ("fused", fdec), ("per-slice", wdec)):
         if not torch.equal(d["x_hat"], hdec["x_hat"]):
-            raise AssertionError(f"{name} x_hat is not bit-equal to the host coder's")
+            raise AssertionError(f"{name} {what} x_hat is not bit-equal to the "
+                                 "host coder's")
     if len(lane._graphs) != 1:
-        raise AssertionError(f"{len(lane._graphs)} fused graphs for one geometry")
+        raise AssertionError(f"{name}: {len(lane._graphs)} fused graphs for one geometry")
     y_want = enc["strings"][0][0]
     for tier, ((_, step, _), first_enc, tenc, tdec) in tier_steps.items():
         codec = tiers[tier]
         if codec._fused_mode != tier or not codec.fused_encode:
-            raise AssertionError(f"{tier} tier demoted to {codec._fused_mode} "
+            raise AssertionError(f"{name} {tier} tier demoted to {codec._fused_mode} "
                                  f"(fused_encode {codec.fused_encode})")
         for e in (first_enc, tenc):
             y = e["strings"][0][0]
             if y[0] != y_want[0] | 1 or y[1:] != y_want[1:]:
-                raise AssertionError(f"{tier} tier: y-stream is not the "
+                raise AssertionError(f"{name} {tier} tier: y-stream is not the "
                                      "per-slice stream with the fused flag")
             if e["strings"][1] != enc["strings"][1]:
-                raise AssertionError(f"{tier} tier: z strings differ")
+                raise AssertionError(f"{name} {tier} tier: z strings differ")
             if not all(torch.equal(a, b) for a, b in
                        zip(e["symbols"] + e["indexes"],
                            enc["symbols"] + enc["indexes"])):
-                raise AssertionError(f"{tier} tier: symbols or indexes differ")
+                raise AssertionError(f"{name} {tier} tier: symbols or indexes differ")
         if not torch.equal(tdec["x_hat"], dec["x_hat"]):
-            raise AssertionError(f"{tier} tier: decoded x_hat differs")
+            raise AssertionError(f"{name} {tier} tier: decoded x_hat differs")
         if len(codec._enc_graphs) != 1 or len(codec._graphs) != 1:
-            raise AssertionError(f"{tier} tier: {len(codec._enc_graphs)} encode "
+            raise AssertionError(f"{name} {tier} tier: {len(codec._enc_graphs)} encode "
                                  f"and {len(codec._graphs)} decode graphs")
     x_hat = dec["x_hat"]
     if x_hat.shape != (BATCH, HEIGHT, WIDTH, 3) or not torch.isfinite(x_hat).all():
-        raise AssertionError(f"x_hat shape {tuple(x_hat.shape)} or values bad")
+        raise AssertionError(f"{name}: x_hat shape {tuple(x_hat.shape)} or values bad")
     # the decoded image against the model's own eval forward on x
     xf = torch.from_numpy(x).to(dev).float() / 255.0
     with torch.inference_mode():
         ref = model(xf)["x_hat"].clamp(0, 1)
     fwd_err = (ref - x_hat).abs().max().item()
     if not fwd_err <= 1e-3:
-        raise AssertionError(f"codec x_hat vs eval forward: {fwd_err}")
+        raise AssertionError(f"{name}: codec x_hat vs eval forward: {fwd_err}")
 
     def b1(d):
         return sum(v for k, v in d.items() if k.startswith("window_attention"))
@@ -732,31 +785,32 @@ def phase_codec(dev, smi):
     # (step, B1, B2, B3, B4) launches each step must show. A tier's first
     # compress runs its walk eagerly (warm-up), captures it (counts taken
     # back) and replays it, then its self-check's fused decompress does the
-    # same (B1 2 + 2, B2 S + S, B4 32 + 32); the split tier's analysis runs
-    # eagerly once a call (B1 2). Neither tier's walk pins.
+    # same (B1 A + A, B2 S + S, B4 pins + pins); the split tier's analysis
+    # runs eagerly once a call (B1 A). Neither tier's walk pins.
     (full_first, full_replay, full_dec), _, _, _ = tier_steps["full"]
     (split_first, split_replay, split_dec), _, _, _ = tier_steps["split"]
     want = (
-        ("lane compress", 2, 0, S, 0),
-        (first, 4, 2 * S, 0, 64),
-        ("host compress", 2, 0, 0, 0),
-        ("host decompress", 2, 0, 0, 0),
-        (fused, 2, S, 0, 32),
-        (per_slice, 2, S, 0, 0),
-        (full_first, 4 + 4, 2 * S, 2 * S, 64),
-        (full_replay, 2, 0, S, 0),
-        (full_dec, 2, S, 0, 32),
-        (split_first, 2 + 4, 2 * S, 2 * S, 64),
-        (split_replay, 2, 0, S, 0),
-        (split_dec, 2, S, 0, 32),
+        ("lane compress", A, 0, S, 0),
+        (first, 2 * A, 2 * S, 0, 2 * pins),
+        ("host compress", A, 0, 0, 0),
+        ("host decompress", A, 0, 0, 0),
+        (fused, A, S, 0, pins),
+        (per_slice, A, S, 0, 0),
+        (full_first, 2 * A + 2 * A, 2 * S, 2 * S, 2 * pins),
+        (full_replay, A, 0, S, 0),
+        (full_dec, A, S, 0, pins),
+        (split_first, A + 2 * A, 2 * S, 2 * S, 2 * pins),
+        (split_replay, A, 0, S, 0),
+        (split_dec, A, S, 0, pins),
     )
     for step, *expect in want:
         d = steps[step]
         got = [b1(d), d.get("lane_decode", 0), d.get("lane_encode", 0),
                d.get("layout_pin", 0)]
         if got != expect:
-            raise AssertionError(f"{step}: B1/B2/B3/B4 launches {got}, want {expect}")
-    # B4's 32 pins per fused walk by path: z_hat and the S rv are NHWC
+            raise AssertionError(f"{name} {step}: B1/B2/B3/B4 launches {got}, "
+                                 f"want {expect}")
+    # B4's 3S + 2 pins per fused walk by path: z_hat and the S rv are NHWC
     # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
     # (the tiers' stream decodes and self-checks likewise)
     for step, reps in (
@@ -766,21 +820,24 @@ def phase_codec(dev, smi):
         got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
         want = {"packed": reps * (2 * S + 1),
                 "transpose": reps * (S + 1), "general": 0}
-        print(f"B4 pins by path in {step}: {got}")
+        print(f"{name}: B4 pins by path in {step}: {got}")
         if got != want:
-            raise AssertionError(f"{step}: B4 pins by path {got}, want {want}")
+            raise AssertionError(f"{name} {step}: B4 pins by path {got}, "
+                                 f"want {want}")
 
     pixels = BATCH * HEIGHT * WIDTH
     lane_bytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
     host_bytes = sum(map(len, henc["strings"][0])) + sum(map(len, henc["strings"][1]))
     p = psnr(x_hat, xf).item()
-    print(f"codec (seed weights, not an operating point): {BATCH}x{HEIGHT}x{WIDTH} "
+    print(f"{name} codec (seed weights, not an operating point): "
+          f"{BATCH}x{HEIGHT}x{WIDTH} "
           f"lane {lane_bytes * 8 / pixels:.4f} bpp host {host_bytes * 8 / pixels:.4f} "
           f"bpp PSNR {p:.3f} dB; B3 segments sent to the host encoder: "
           f"{enc['host_encoded']} of {S}; y-stream identical to the host lane "
           f"encoder's (which took {host_lane_s:.3f} s); eval-forward max diff "
           f"{fwd_err:.3g}")
-    print("first calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    print(f"{name} first calls: "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     # warm per-call times, medians of 5
     warm = {}
     calls = (
@@ -790,19 +847,19 @@ def phase_codec(dev, smi):
         ("fused decompress", lambda: fused_strict(enc)),
         ("per-slice decompress", lambda: per_slice_decompress(enc)),
     )
-    for name, fn in calls:
-        warm[name] = float(np.median([timed(fn)[1] for _ in range(5)]))
-    print(f"warm per call ({smi}): "
+    for what, fn in calls:
+        warm[what] = float(np.median([timed(fn)[1] for _ in range(5)]))
+    print(f"{name} warm per call, median of 5 ({smi}): "
           + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
     # device-busy share of one warm call each, in a profiler window of its
     # own (the first window, untimed, pays the tracer's start-up)
     profile_call(calls[0][1], "tracer start-up")
     shares = []
-    for name, fn in calls[:3]:
-        wall, busy, _ = profile_call(fn, name)
-        shares.append(f"{name} {wall * 1e3:.3f} ms wall, device busy "
+    for what, fn in calls[:3]:
+        wall, busy, _ = profile_call(fn, what)
+        shares.append(f"{what} {wall * 1e3:.3f} ms wall, device busy "
                       f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
-    print(f"profiled warm call ({smi}): " + "; ".join(shares))
+    print(f"{name} profiled warm call ({smi}): " + "; ".join(shares))
     return launches
 
 
@@ -874,11 +931,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     rows = (phase_attention(dev) + phase_lane_decode(dev, sm_mhz)
             + phase_lane_encode(dev, sm_mhz) + phase_layout_pin(dev))
-    launches = phase_codec(dev, smi)
+    launches = {name: phase_codec(dev, smi, name) for name in ("cnn", "stf")}
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        # B1's rows count on their model's path, B2-B4's on WACNN's
+        path = row.pop("path", "cnn")
+        row["launches"] = launches[path].get(row["name"], 0)
         if not row["launches"]:
-            raise AssertionError(f"{row['name']} never launched on the main path")
+            raise AssertionError(f"{row['name']} never launched on the {path} "
+                                 "main path")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ counterpart is easy to find:
     stf_tpu_torch.ans       native C++ rANS coder (ctypes) + lane coder with
                             its CUDA encode, decode and layout-pin kernels
     stf_tpu_torch.entropy   entropy models and host-side CDF tables/coders
-    stf_tpu_torch.layers    convs, GDN, window attention (CUDA core kernel)
-    stf_tpu_torch.models    WACNN, the channel-AR base and the Codec
+    stf_tpu_torch.layers    convs, GDN, window attention (CUDA core kernel),
+                            Swin blocks
+    stf_tpu_torch.models    WACNN, STF, the channel-AR base and the Codec
     stf_tpu_torch.zoo       registry and the JAX-params -> state_dict bridge
     stf_tpu_torch.utils     metrics
 

@@ -72,10 +72,17 @@
 // 85 registers (it uses 80), so six blocks (24 warps) fit on an SM; a
 // two-buffer persistent block that loads the next window during the
 // current one measured 10-40% slower (fewer warps left to hide the
-// latencies). At N = 16 a block is one warp with 8.4 KB. Index arithmetic
-// is by compile-time constants (N, hd): an earlier version with a run-time
-// head-group size spent as many instructions on the staging loop's
-// divisions as on S.
+// latencies). At N = 16 a block is one warp: 8.4 KB at hd 40 (WACNN),
+// 3.8 KB at hd 16 (STF's every stage). There registers, not shared
+// memory, limit the blocks an SM holds (at most 32), and MINB caps them:
+// 64 a thread at MINB 32 (WINDOW_ATTENTION_HD16_MINB, chosen on the card:
+// PERF.md section 6).
+// At hd 16 a head's slice of a qkv row is 64 bytes, so it stays 16-byte
+// aligned for cp.async; S takes 2 k-tiles and P . v 2 n-tiles; rows of
+// hd + 4 = 20 floats keep the fragment loads on 32 distinct banks. Index
+// arithmetic is by compile-time constants (N, hd): an earlier version with
+// a run-time head-group size spent as many instructions on the staging
+// loop's divisions as on S.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -303,6 +310,10 @@ window_attention_kernel(const float* __restrict__ qkv,
   }
 }
 
+#ifndef WINDOW_ATTENTION_HD16_MINB
+#define WINDOW_ATTENTION_HD16_MINB 32
+#endif
+
 template <int WS, int HD, int MINB>
 int launch(const float* qkv, const float* bias, const int32_t* labels,
            float* out, int B, int H, int W, int C, int nh, float scale,
@@ -326,11 +337,13 @@ int launch(const float* qkv, const float* bias, const int32_t* labels,
 extern "C" {
 
 // 1 when (N, hd) has a compiled instance, else 0: WACNN's two geometries,
-// 8x8 windows at head width 24 and 4x4 windows at head width 40. Each
-// instance unrolls its tiles fully and costs build time, so only shapes a
-// ported model runs are compiled.
+// 8x8 windows at head width 24 and 4x4 windows at head width 40, and
+// STF's, 4x4 windows at head width 16. Each instance unrolls its tiles
+// fully and costs build time, so only shapes a ported model runs are
+// compiled.
 int stf_window_attention_supported(int32_t n, int32_t hd) {
-  return (n == 64 && hd == 24) || (n == 16 && hd == 40);
+  return (n == 64 && hd == 24) || (n == 16 && hd == 40) ||
+         (n == 16 && hd == 16);
 }
 
 // qkv: (B, H, W, 3C) f32; bias: (nh, N, N) f32; labels: (nW, N) int32 or
@@ -353,6 +366,9 @@ int stf_window_attention(const void* qkv, const void* bias,
     return launch<8, 24, 6>(q, bs, lb, o, B, H, W, C, nh, scale, st);
   if (n == 16 && hd == 40)
     return launch<4, 40, 8>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+  if (n == 16 && hd == 16)
+    return launch<4, 16, WINDOW_ATTENTION_HD16_MINB>(q, bs, lb, o, B, H, W, C,
+                                                     nh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,18 +1,36 @@
 from .attention_core import window_attention, window_attention_plain
 from .conv import conv, conv1x1, conv3x3, deconv, gelu, subpel_conv3x3
 from .gdn import GDN
+from .swin import (
+    BasicLayer,
+    DropPath,
+    Mlp,
+    PatchEmbed,
+    PatchMerging,
+    PatchSplit,
+    SwinTransformerBlock,
+    pixel_shuffle_nhwc,
+)
 from .win_attention import (
     ResidualUnit,
     WinBasedAttention,
     WindowAttention,
     Win_noShift_Attention,
+    region_labels,
     relative_position_index,
     shifted_window_region_labels,
 )
 
 __all__ = [
+    "BasicLayer",
+    "DropPath",
     "GDN",
+    "Mlp",
+    "PatchEmbed",
+    "PatchMerging",
+    "PatchSplit",
     "ResidualUnit",
+    "SwinTransformerBlock",
     "WinBasedAttention",
     "WindowAttention",
     "Win_noShift_Attention",
@@ -21,6 +39,8 @@ __all__ = [
     "conv3x3",
     "deconv",
     "gelu",
+    "pixel_shuffle_nhwc",
+    "region_labels",
     "relative_position_index",
     "shifted_window_region_labels",
     "subpel_conv3x3",

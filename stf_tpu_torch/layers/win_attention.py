@@ -9,6 +9,8 @@ the NHWC view: roll by (-ss, -ss), qkv projection, kernel B1 on the
 (B, H, W, 3C) projection, output projection, roll back by (+ss, +ss).
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -53,6 +55,17 @@ def shifted_window_region_labels(
     ws = window_size
     mw = img_mask.reshape(H // ws, ws, W // ws, ws)
     return mw.transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+
+
+@functools.lru_cache(maxsize=256)
+def region_labels(H: int, W: int, window_size: int, shift_size: int,
+                  device) -> torch.Tensor:
+    """`shifted_window_region_labels` as an int32 tensor on `device`, made
+    once per (H, W, window, shift, device). A codec's first call of a
+    shape runs eagerly before its CUDA-graph capture, so the capture finds
+    every table made and copies nothing from the host."""
+    lab = shifted_window_region_labels(H, W, window_size, shift_size)
+    return torch.from_numpy(lab).to(device)
 
 
 class WindowAttention(nn.Module):
@@ -106,16 +119,6 @@ class WinBasedAttention(nn.Module):
         self.window_size = window_size
         self.shift_size = shift_size
         self.attn = WindowAttention(dim, (window_size, window_size), num_heads)
-        self._labels = {}
-
-    def _region_labels(self, H: int, W: int, device):
-        key = (H, W, device)
-        if key not in self._labels:
-            lab = shifted_window_region_labels(
-                H, W, self.window_size, self.shift_size
-            )
-            self._labels[key] = torch.from_numpy(lab).to(device)
-        return self._labels[key]
 
     def forward(self, x):
         ss = self.shift_size
@@ -124,7 +127,7 @@ class WinBasedAttention(nn.Module):
         shortcut = x
         labels = None
         if ss > 0:
-            labels = self._region_labels(H, W, x.device)
+            labels = region_labels(H, W, self.window_size, ss, x.device)
             x = torch.roll(x, shifts=(-ss, -ss), dims=(1, 2))
         x = self.attn(x, labels=labels)
         if ss > 0:

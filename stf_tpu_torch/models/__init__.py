@@ -1,5 +1,7 @@
 from .base import ChannelARModel, init_weights
 from .cnn import WACNN
 from .codec import Codec
+from .stf import SymmetricalTransFormer
 
-__all__ = ["ChannelARModel", "Codec", "WACNN", "init_weights"]
+__all__ = ["ChannelARModel", "Codec", "SymmetricalTransFormer", "WACNN",
+           "init_weights"]

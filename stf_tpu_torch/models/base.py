@@ -14,13 +14,13 @@ internal layout.
 """
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..entropy import gaussian_build_indexes, gaussian_likelihood
-from ..layers.conv import conv3x3
+from ..layers.conv import conv3x3, subpel_conv3x3
 
 
 def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int]):
@@ -34,6 +34,18 @@ def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int]):
     return nn.Sequential(*layers)
 
 
+def hyper_synthesis(c: Sequence[int]):
+    """h_mean_s / h_scale_s: 4x upsampling through the six widths c: conv,
+    subpel 2x, conv, subpel 2x, conv (keys .0, .2.0, .4, .6.0, .8)."""
+    return nn.Sequential(
+        conv3x3(c[0], c[1]), nn.GELU(),
+        subpel_conv3x3(c[1], c[2], 2), nn.GELU(),
+        conv3x3(c[2], c[3]), nn.GELU(),
+        subpel_conv3x3(c[3], c[4], 2), nn.GELU(),
+        conv3x3(c[4], c[5]),
+    )
+
+
 def slice_transform(in_ch: int, out_ch: int):
     """5-stage 3x3 stack in -> 224 -> 176 -> 128 -> 64 -> out (reference
     `cnn.py:89-127`)."""
@@ -43,8 +55,9 @@ def slice_transform(in_ch: int, out_ch: int):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter from `generator`: convs and linears
     uniform in ±1/sqrt(fan_in) (torch's default scale), relative-position
-    tables N(0, 0.02) clipped at ±0.04, GDN and the bottleneck by their own
-    `reset_parameters`. Deterministic for a given generator state."""
+    tables N(0, 0.02) clipped at ±0.04, LayerNorms to weight 1 and bias 0,
+    GDN and the bottleneck by their own `reset_parameters`. Deterministic
+    for a given generator state."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -52,6 +65,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.LayerNorm):
+                m.reset_parameters()  # draws nothing
             elif hasattr(m, "relative_position_bias_table"):
                 t = m.relative_position_bias_table
                 t.normal_(0.0, 0.02, generator=generator).clamp_(-0.04, 0.04)
@@ -182,14 +197,16 @@ class ChannelARModel(nn.Module):
         return torch.clamp(self.synthesis(y_hat), 0.0, 1.0)
 
 
-def make_slice_transforms(M: int, num_slices: int, max_support: int):
+def make_slice_transforms(M: int, num_slices: int, max_support: int,
+                          hyper_ch: Optional[int] = None):
     """(cc_mean, cc_scale, lrp) ModuleLists with the reference widths:
-    slice i's context is the M hyper channels plus its decoded support
-    (at most max_support slices); lrp also sees the slice itself."""
+    slice i's context is the `hyper_ch` (M by default) channels of the
+    hyper synthesis plus its decoded support (at most max_support slices
+    of M / num_slices); lrp also sees the slice itself."""
     slice_ch = M // num_slices
     n_support = [i if max_support < 0 else min(i, max_support)
                  for i in range(num_slices)]
-    cc_in = [M + slice_ch * k for k in n_support]
+    cc_in = [(hyper_ch or M) + slice_ch * k for k in n_support]
     return (
         nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),
         nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),

@@ -14,26 +14,19 @@ torch keys:
 import torch.nn as nn
 
 from ..entropy import EntropyBottleneck
-from ..layers import GDN, Win_noShift_Attention, conv, conv3x3, deconv, subpel_conv3x3
-from .base import ChannelARModel, conv_gelu_stack, make_slice_transforms
+from ..layers import GDN, Win_noShift_Attention, conv, deconv
+from .base import (
+    ChannelARModel,
+    conv_gelu_stack,
+    hyper_synthesis,
+    make_slice_transforms,
+)
 
 
 def _ramp(a: int, b: int, n: int = 5):
     """Arithmetic channel ramp a -> b with n entries (reference widths
     320,288,256,224,192 are exactly this for (M, N))."""
     return tuple(round(a + (b - a) * i / (n - 1)) for i in range(n))
-
-
-def hyper_synthesis(N: int, M: int):
-    """h_mean_s / h_scale_s: 4x upsampling with channel ramp N -> M."""
-    f = _ramp(N, M)
-    return nn.Sequential(
-        conv3x3(N, f[0]), nn.GELU(),
-        subpel_conv3x3(f[0], f[1], 2), nn.GELU(),
-        conv3x3(f[1], f[2]), nn.GELU(),
-        subpel_conv3x3(f[2], f[3], 2), nn.GELU(),
-        conv3x3(f[3], f[4]),
-    )
 
 
 class WACNN(ChannelARModel):
@@ -61,8 +54,8 @@ class WACNN(ChannelARModel):
         )
         ramp = _ramp(M, N)
         self.h_a = conv_gelu_stack((M,) + ramp, (1, 1, 2, 1, 2))
-        self.h_mean_s = hyper_synthesis(N, M)
-        self.h_scale_s = hyper_synthesis(N, M)
+        self.h_mean_s = hyper_synthesis((N,) + _ramp(N, M))
+        self.h_scale_s = hyper_synthesis((N,) + _ramp(N, M))
         (self.cc_mean_transforms, self.cc_scale_transforms,
          self.lrp_transforms) = make_slice_transforms(
             M, num_slices, max_support_slices

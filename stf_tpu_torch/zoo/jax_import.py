@@ -1,12 +1,13 @@
 """JAX/flax params -> port state_dict (the inverse of
-`stf_tpu/zoo/torch_import.py`, WACNN rules only so far).
+`stf_tpu/zoo/torch_import.py`, WACNN and STF rules so far).
 
 The input is a nested dict of NumPy arrays under flax names, as
 ``jax.tree_util.tree_map(np.asarray, params)`` gives; the output is a
-state_dict for the port's `WACNN` (reference torch key names). Layouts are
-inverted leaf by leaf: conv HWIO -> OIHW, transposed conv (spatially
-flipped HWIO) -> IOHW, dense (in, out) -> Linear (out, in); "direct"
-leaves (GDN beta/gamma, bias tables, bottleneck parameters) pass through.
+state_dict for the port's `WACNN` or `SymmetricalTransFormer` (reference
+torch key names). Layouts are inverted leaf by leaf: conv HWIO -> OIHW,
+transposed conv (spatially flipped HWIO) -> IOHW, dense (in, out) ->
+Linear (out, in), LayerNorm scale -> weight; "direct" leaves (GDN
+beta/gamma, bias tables, bottleneck parameters) pass through.
 
 `strip_prefixes` is the reference's `load_pretrained` key clean-up, so a
 reference `.pth.tar` state_dict loads into the port with
@@ -65,7 +66,13 @@ _TO_TORCH = {
     "dense": dense_kernel_to_torch,
 }
 
-_LEAF = {"kernel": "weight", "bias": "bias"}  # flax leaf -> torch leaf
+# flax leaf -> torch leaf, by kind
+_LEAF = {
+    "conv": {"kernel": "weight", "bias": "bias"},
+    "deconv": {"kernel": "weight", "bias": "bias"},
+    "dense": {"kernel": "weight", "bias": "bias"},
+    "ln": {"scale": "weight", "bias": "bias"},
+}
 
 # Win_noShift_Attention internals (WACNN g_a/g_s):
 #   res_a{r}/Conv_{c}/Conv_0 -> conv_a.{r}.conv.{0|2|4}
@@ -105,6 +112,27 @@ def _hyper_synthesis_rules(name: str):
     ]
 
 
+def _shared_rules():
+    """The hyper, slice-transform and bottleneck rules of every
+    ChannelARModel."""
+    rules = [(r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv")]
+    rules += _hyper_synthesis_rules("h_mean_s")
+    rules += _hyper_synthesis_rules("h_scale_s")
+    rules.append((r"(cc_mean|cc_scale|lrp)_(\d+)/stack/conv_(\d)/Conv_0",
+                  r"\1_transforms.\2.SEQTIMES2", "conv"))
+    rules += [
+        (r"entropy_bottleneck/matrix_(\d)", r"entropy_bottleneck._matrix\1",
+         "direct"),
+        (r"entropy_bottleneck/bias_(\d)", r"entropy_bottleneck._bias\1",
+         "direct"),
+        (r"entropy_bottleneck/factor_(\d)", r"entropy_bottleneck._factor\1",
+         "direct"),
+        (r"entropy_bottleneck/quantiles", r"entropy_bottleneck.quantiles",
+         "direct"),
+    ]
+    return rules
+
+
 def wacnn_rules():
     """(flax path regex, torch key template, kind) for every WACNN leaf."""
     ga_seq = {"conv_0": 0, "gdn_0": 1, "conv_1": 2, "gdn_1": 3, "attn_0": 4,
@@ -130,22 +158,39 @@ def wacnn_rules():
                           "direct"))
         else:
             rules += _attn_rules(f"g_s/{name}", f"g_s.{idx}")
-    rules.append((r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv"))
-    rules += _hyper_synthesis_rules("h_mean_s")
-    rules += _hyper_synthesis_rules("h_scale_s")
-    rules.append((r"(cc_mean|cc_scale|lrp)_(\d+)/stack/conv_(\d)/Conv_0",
-                  r"\1_transforms.\2.SEQTIMES2", "conv"))
-    rules += [
-        (r"entropy_bottleneck/matrix_(\d)", r"entropy_bottleneck._matrix\1",
-         "direct"),
-        (r"entropy_bottleneck/bias_(\d)", r"entropy_bottleneck._bias\1",
-         "direct"),
-        (r"entropy_bottleneck/factor_(\d)", r"entropy_bottleneck._factor\1",
-         "direct"),
-        (r"entropy_bottleneck/quantiles", r"entropy_bottleneck.quantiles",
-         "direct"),
+    return rules + _shared_rules()
+
+
+def stf_rules():
+    """(flax path regex, torch key template, kind) for every STF leaf:
+    flax `layer_i/block_j` and `syn_layer_i/block_j` to torch
+    `layers.i.blocks.j` and `syn_layers.i.blocks.j`; PatchMerging
+    (`downsample`) and PatchSplit (`upsample`) both to `downsample`."""
+    rules = [
+        (r"patch_embed/proj/Conv_0", r"patch_embed.proj", "conv"),
+        (r"patch_embed/norm", r"patch_embed.norm", "ln"),
+        (r"end_conv_0/Conv_0", r"end_conv.0", "conv"),
+        (r"end_conv_1/Conv_0", r"end_conv.2", "conv"),
     ]
-    return rules
+    for f, t, resample in (("layer", "layers", "downsample"),
+                           ("syn_layer", "syn_layers", "upsample")):
+        rules += [
+            (rf"{f}_(\d)/block_(\d)/norm([12])", rf"{t}.\1.blocks.\2.norm\3",
+             "ln"),
+            (rf"{f}_(\d)/block_(\d)/attn/(qkv|proj)",
+             rf"{t}.\1.blocks.\2.attn.\3", "dense"),
+            (rf"{f}_(\d)/block_(\d)/attn/relative_position_bias_table",
+             rf"{t}.\1.blocks.\2.attn.relative_position_bias_table", "direct"),
+            (rf"{f}_(\d)/block_(\d)/mlp/(fc[12])", rf"{t}.\1.blocks.\2.mlp.\3",
+             "dense"),
+            (rf"{f}_(\d)/{resample}/norm", rf"{t}.\1.downsample.norm", "ln"),
+            (rf"{f}_(\d)/{resample}/reduction", rf"{t}.\1.downsample.reduction",
+             "dense"),
+        ]
+    return rules + _shared_rules()
+
+
+_RULES = {"cnn": wacnn_rules, "stf": stf_rules}
 
 
 def _translate(rules, path: Tuple[str, ...]):
@@ -169,10 +214,11 @@ def _fix_key(key: str, path_joined: str) -> str:
     return key
 
 
-def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """WACNN flax params (nested dict of arrays) -> port state_dict.
-    Raises KeyError for a leaf no rule maps."""
-    rules = wacnn_rules()
+def state_dict_from_jax(params, model: str = "cnn") -> Dict[str, torch.Tensor]:
+    """flax params (nested dict of arrays) of registry model `model` ("cnn"
+    or "stf") -> port state_dict. Raises KeyError for a leaf no rule
+    maps."""
+    rules = _RULES[model]()
     flat = {}
 
     def walk(tree, path):
@@ -190,7 +236,7 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
             base, kind = _translate(rules, path[:-1])
             if base is None or kind == "direct":
                 raise KeyError(f"no torch mapping for {'/'.join(path)!r}")
-            key = f"{base}.{_LEAF[path[-1]]}"
+            key = f"{base}.{_LEAF[kind][path[-1]]}"
             if path[-1] == "kernel":
                 leaf = _TO_TORCH[kind](leaf)
         out[key] = torch.from_numpy(np.array(leaf))  # a writable copy

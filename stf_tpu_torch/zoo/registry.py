@@ -1,10 +1,11 @@
-"""Model registry (port of `stf_tpu/zoo/registry.py`; only "cnn" so far)."""
+"""Model registry (port of `stf_tpu/zoo/registry.py`; "cnn" and "stf" so
+far)."""
 
 from typing import Optional
 
 import torch
 
-from ..models import WACNN, init_weights
+from ..models import WACNN, SymmetricalTransFormer, init_weights
 
 
 class _Models(dict):
@@ -14,7 +15,7 @@ class _Models(dict):
         )
 
 
-models = _Models(cnn=WACNN)
+models = _Models(cnn=WACNN, stf=SymmetricalTransFormer)
 
 
 def create_model(name: str, seed: Optional[int] = None, **kwargs):

@@ -13,8 +13,9 @@ from stf_tpu.layers.win_attention import WindowAttention as JaxWindowAttention
 from stf_tpu.layers.win_attention import shifted_window_region_labels
 from stf_tpu_torch.layers import WindowAttention, window_attention
 
-# (window, head dim) of WACNN's two attention geometries, 8 heads each
-GEOMETRIES = [(8, 24), (4, 40)]
+# (window, head dim) of WACNN's two attention geometries and STF's one, 8
+# heads each
+GEOMETRIES = [(8, 24), (4, 40), (4, 16)]
 
 
 def _inputs(ws, hd, shifted, seed=0):

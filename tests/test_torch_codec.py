@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import pair_from_port, smooth_images
+from _torch_port import jax_walk_indexes, pair_from_port, smooth_images
 from stf_tpu.models import Codec as JaxCodec
 from stf_tpu_torch.models import Codec
 from torch import nn
@@ -136,28 +136,9 @@ def test_lane_round_trip_equals_host(setup):
     assert dec["x_hat"].shape == (2, 64, 64, 3)
 
 
-def _jax_walk_indexes(jcodec, x):
-    """The JAX codec's per-slice (symbols, indexes), from the same jitted
-    programs its compress() runs."""
-    model = jcodec.model
-    y, z = jcodec._analyze(jcodec.params, jnp.asarray(x))
-    *_, z_hat = jcodec._z_quantize(z, jnp.asarray(jcodec.eb_coder.medians))
-    lm, ls = jcodec._hyper(jcodec.params, z_hat, (y.shape[1], y.shape[2]))
-    y_slices = jnp.split(y, model.slice_boundaries(y.shape[-1]), axis=-1)
-    out = []
-
-    def get_symbols(i, mu, idx):
-        q = jnp.round(y_slices[i] - mu).astype(jnp.int32)
-        out.append((np.asarray(q), np.asarray(idx)))
-        return q
-
-    jcodec._walk_slices(lm, ls, get_symbols)
-    return out
-
-
 def test_indexes_and_streams_match_jax(setup):
     enc, jenc = setup["enc"], setup["jenc"]
-    walk = _jax_walk_indexes(setup["jcodec"], setup["x"])
+    walk = jax_walk_indexes(setup["jcodec"], setup["x"])
     assert len(walk) == len(enc["indexes"]) == 4
     for (q, idx), s, i in zip(walk, enc["symbols"], enc["indexes"]):
         np.testing.assert_array_equal(i, idx.astype(np.int32))

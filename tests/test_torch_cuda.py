@@ -43,7 +43,7 @@ def _attn_inputs(dev, ws, hd, shifted, hw_windows=(2, 3), seed=0, batch=2,
 
 
 @pytest.mark.parametrize("shifted", [False, True])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40)])
+@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
 def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
     qkv, bias, labels = _attn_inputs(dev, ws, hd, shifted)
     before = _native.launch_counts[f"window_attention_ws{ws}_hd{hd}"]
@@ -63,7 +63,7 @@ def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
 # (2.4e-6 against 8.8e-6 at 8x8 on an H100, PERF.md section 6)
 @pytest.mark.parametrize("case", ["batch1", "one_window", "odd_windows",
                                   "bias_x30"])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40)])
+@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
 def test_window_attention_kernel_edge_cases(dev, ws, hd, case):
     kw = {"batch1": dict(batch=1), "one_window": dict(hw_windows=(1, 1)),
           "odd_windows": dict(hw_windows=(3, 5)),
@@ -375,7 +375,7 @@ def test_consecutive_fused_decompresses_are_independent(dev):
     replays (outputs are cloned out of the graph's static buffers). At
     1024 symbols a slice every stream has the same bank buckets, so at
     least two of the three replay one graph. Full width (B1 has
-    instances for WACNN's head widths only), 64x64 images."""
+    instances for the full models' head widths only), 64x64 images."""
     from stf_tpu_torch.models import Codec
     from stf_tpu_torch.zoo import create_model
 
@@ -481,6 +481,40 @@ def test_fused_encode_replay_gives_the_per_slice_stream(dev, tier, size):
     assert replay.get("lane_encode", 0) == S
     assert replay.get("lane_decode", 0) == 0
     assert replay.get("layout_pin", 0) == 0
+
+
+@pytest.mark.parametrize("tier", [True, "split"], ids=str)
+def test_stf_fused_encode_replay_gives_the_per_slice_stream(dev, tier):
+    """The full-width STF at a 128x192 input: a tier's first compress
+    (capture and self-check) and its replay give the per-slice stream
+    from byte 1 on, the tier is not demoted, and a replay launches B1 (at
+    head width 16) once for each of the analysis's 12 blocks and B3 once a
+    slice."""
+    import warnings
+
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model("stf", seed=0)
+    x = _pattern(128, 192)
+    want = Codec(model, coder="lane", device=dev).compress(x)
+    codec = Codec(model, coder="lane", device=dev, fused_encode=tier)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        first = codec.compress(x)
+        before = dict(_native.launch_counts)
+        again = codec.compress(x)
+    replay = _lane_launches(before)
+    for enc in (first, again):
+        y, y_want = enc["strings"][0][0], want["strings"][0][0]
+        assert y[0] == y_want[0] | 1 and y[1:] == y_want[1:]
+        assert enc["strings"][1] == want["strings"][1]
+    assert codec.fused_encode and codec._fused_mode == (
+        "full" if tier is True else "split")
+    assert replay.get("window_attention_ws4_hd16", 0) == 12
+    assert replay.get("lane_encode", 0) == model.num_slices
+    dec = codec.decompress(again["strings"], again["shape"])
+    assert dec["x_hat"].shape == (2, 128, 192, 3)
 
 
 def test_consecutive_fused_compresses_are_independent(dev):

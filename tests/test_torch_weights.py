@@ -1,13 +1,13 @@
-"""Weight bridge: flax WACNN params <-> the port's state_dict."""
+"""Weight bridge: flax WACNN and STF params <-> the port's state_dict."""
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import SMALL, flat_leaves, pair_from_port
+from _torch_port import SMALL, STF_SMALL, flat_leaves, pair_from_port
 from stf_tpu.zoo.torch_import import import_state_dict
 from stf_tpu.zoo.torch_import import strip_prefixes as jax_strip_prefixes
-from stf_tpu_torch.models import WACNN
+from stf_tpu_torch.models import WACNN, SymmetricalTransFormer
 from stf_tpu_torch.zoo import create_model, state_dict_from_jax, strip_prefixes
 
 
@@ -23,6 +23,31 @@ def test_jax_params_load_strict_and_round_trip(params):
     port = WACNN(**SMALL)
     port.load_state_dict(state_dict_from_jax(params), strict=True)
     back = import_state_dict("cnn", params, port.state_dict())
+    want, got = flat_leaves(params), flat_leaves(back)
+    assert set(want) == set(got)
+    for path, leaf in want.items():
+        assert got[path].dtype == leaf.dtype, path
+        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
+
+
+def test_stf_jax_params_load_strict_and_round_trip():
+    """The STF case of the round trip above: state_dict_from_jax(params,
+    "stf") loads strict into the port's SymmetricalTransFormer, maps every
+    flax leaf to its own key (LayerNorm scales, bias-free reductions,
+    PatchSplit under `downsample`), and import_state_dict("stf", ...) of
+    the port's state_dict gives the tree back bit for bit."""
+    params = pair_from_port(seed=3, name="stf")[1]
+    sd = state_dict_from_jax(params, "stf")
+    assert len(sd) == len(flat_leaves(params))
+    port = SymmetricalTransFormer(**STF_SMALL)
+    port.load_state_dict(sd, strict=True)
+    for k in ("patch_embed.norm.weight", "layers.2.blocks.1.attn.qkv.weight",
+              "layers.0.downsample.reduction.weight",
+              "syn_layers.1.downsample.norm.bias", "end_conv.2.weight",
+              "h_mean_s.6.0.weight", "lrp_transforms.3.8.bias"):
+        assert k in sd, k
+    assert "layers.0.downsample.reduction.bias" not in sd
+    back = import_state_dict("stf", params, port.state_dict())
     want, got = flat_leaves(params), flat_leaves(back)
     assert set(want) == set(got)
     for path, leaf in want.items():
@@ -58,3 +83,16 @@ def test_seeded_models_are_reproducible():
     c = create_model("cnn", seed=8, **SMALL).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["g_a.0.weight"], c["g_a.0.weight"])
+
+
+def test_seeded_stf_is_reproducible():
+    """create_model("stf", seed=s) at full size draws every weight from
+    the seed (LayerNorms to 1 and 0) and raises nothing."""
+    a = create_model("stf", seed=7).state_dict()
+    b = create_model("stf", seed=7).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(a["layers.0.blocks.0.norm1.weight"], torch.ones(48))
+    c = create_model("stf", seed=8, **STF_SMALL).state_dict()
+    d = create_model("stf", seed=7, **STF_SMALL).state_dict()
+    assert not torch.equal(c["patch_embed.proj.weight"],
+                           d["patch_embed.proj.weight"])

@@ -1,10 +1,12 @@
-"""Where the port's codec time goes on the card: full-width WACNN
-(seeded random weights) compress + decompress of two 512x768 images
-under torch.profiler, after one warm-up round trip.
+"""Where the port's codec time goes on the card: a full-width WACNN or
+STF (`chip_smoke.smoke_model`: seeded random weights) compress +
+decompress of two 512x768 images under torch.profiler, after one warm-up
+round trip.
 
-    python3 tools/profile_torch_codec.py [--coder lane|host] [--per-slice]
-        [--fused-encode 0|1|split] [--trace PREFIX]
-    python3 tools/profile_torch_codec.py --rounds N
+    python3 tools/profile_torch_codec.py [--model cnn|stf]
+        [--coder lane|host] [--per-slice] [--fused-encode 0|1|split]
+        [--trace PREFIX]
+    python3 tools/profile_torch_codec.py [--model cnn|stf] --rounds N
 
 Lane compress encodes y on the card (kernel B3), by the per-slice walk
 or (--fused-encode 1 or split) a fused encode tier's CUDA-graph replay;
@@ -32,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="cnn", choices=("cnn", "stf"))
     ap.add_argument("--coder", default="lane", choices=("lane", "host"))
     ap.add_argument("--per-slice", action="store_true",
                     help="lane: decompress with the per-slice walk")
@@ -48,25 +51,25 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from chip_smoke import _device_us, profile_call, smooth_batch
+    from chip_smoke import _device_us, profile_call, smoke_model, smooth_batch
     from stf_tpu_torch.models import Codec
-    from stf_tpu_torch.zoo import create_model
 
     if not torch.cuda.is_available():
         print("profile_torch_codec: needs a CUDA device", file=sys.stderr)
         return 1
     x = (smooth_batch(args.batch, 512, 768, 0) * 255).round().astype(np.uint8)
     if args.rounds:
-        return compare_encode_paths(x, args.rounds)
+        return compare_encode_paths(x, args.rounds, args.model)
     fused_encode = {"0": False, "1": True, "split": "split"}[args.fused_encode]
-    codec = Codec(create_model("cnn", seed=0), coder=args.coder,
+    codec = Codec(smoke_model(args.model), coder=args.coder,
                   fused_encode=fused_encode)
     codec.fused = not args.per_slice
     enc = codec.compress(x)  # warm-up: cuDNN heuristics, allocator, builds
     codec.decompress(enc["strings"], enc["shape"])
     torch.cuda.synchronize()
 
-    print(f"card: {torch.cuda.get_device_name(0)}; coder {args.coder}"
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.model} coder "
+          f"{args.coder}"
           f"{' per-slice' if args.per_slice else ''}"
           f"{f' fused encode {codec._fused_mode}' if codec.fused_encode else ''}; "
           f"batch {args.batch} x 512x768, seed weights")
@@ -90,21 +93,21 @@ def main(argv=None):
     return 0
 
 
-def compare_encode_paths(x, rounds):
+def compare_encode_paths(x, rounds, model_name):
     import numpy as np
     import torch
 
+    from chip_smoke import smoke_model
     from stf_tpu_torch.models import Codec
     from stf_tpu_torch.models import codec as cm
-    from stf_tpu_torch.zoo import create_model
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}; lane compress of {x.shape[0]} x 512x768, seed "
-          "weights")
-    model = create_model("cnn", seed=0)
+    print(f"card: {smi}; {model_name} lane compress of {x.shape[0]} x "
+          "512x768, seed weights")
+    model = smoke_model(model_name)
     codecs = {"per-slice": Codec(model, coder="lane"),
               "full": Codec(model, coder="lane", fused_encode=True),
               "split": Codec(model, coder="lane", fused_encode="split")}
