@@ -621,10 +621,11 @@ def smoke_model(name):
     For "stf" the scale stacks' last bias is lifted by 1: its seed weights
     put every predicted scale at the table's floor (index 0, 0.11) while
     y - mu spreads with std ~0.8, so at 512x768 one lane group of one
-    slice escapes past B3's side channel (~1/8 of its symbols) and every
-    codec, the JAX one too, codes that call through the per-slice walk:
-    the fused encode tiers would not run. A trained model predicts scales
-    near y's spread; the lift puts these at ~1, table index 18-19."""
+    slice escapes past B3's side channel (~1/8 of its symbols) and the
+    port's fused encode tiers code that call through the per-slice walk
+    (`phase_stf_seed_fallback` checks that path): the tiers' own graphs
+    would not be checked. A trained model predicts scales near y's
+    spread; the lift puts these at ~1, table index 18-19."""
     import torch
 
     from stf_tpu_torch.zoo import create_model
@@ -863,6 +864,64 @@ def phase_codec(dev, smi, name):
     return launches
 
 
+def phase_stf_seed_fallback(dev):
+    """The full-width STF as `create_model("stf", seed=SEED)` builds it,
+    without `smoke_model`'s lift: a segment of its lane compress
+    overflows B3's side channel and goes to the host encoder. Each fused
+    encode tier runs its graph, meets the overflow and codes the call
+    through the per-slice walk: it must return the per-slice compress's
+    stream (without the fused-encode flag), symbols and indexes, with
+    host_encoded > 0, and keep its tier. The stream then decodes, fused
+    and strict, to the same symbols."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    x = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round().astype(np.uint8)
+    model = create_model("stf", seed=SEED)
+    lane = Codec(model, coder="lane", device=dev)
+    want = lane.compress(x)
+    top = max(int(i.max()) for i in want["indexes"])
+    if not want["host_encoded"]:
+        raise AssertionError("stf at seed weights: no segment overflowed B3's "
+                             "side channel, so smoke_model's lift is not needed")
+    for tier in (True, "split"):
+        mode = "full" if tier is True else "split"
+        codec = Codec(model, coder="lane", device=dev, fused_encode=tier)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = codec.compress(x)
+        if got["strings"] != want["strings"] or got["strings"][0][0][0] & 1:
+            raise AssertionError(f"stf seed {mode} tier: not the per-slice "
+                                 "stream without the fused flag")
+        if got["host_encoded"] != want["host_encoded"]:
+            raise AssertionError(f"stf seed {mode} tier: host_encoded "
+                                 f"{got['host_encoded']}, want {want['host_encoded']}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                got["symbols"] + got["indexes"], want["symbols"] + want["indexes"])):
+            raise AssertionError(f"stf seed {mode} tier: symbols or indexes differ")
+        if not codec.fused_encode or codec._fused_mode != mode:
+            raise AssertionError(f"stf seed {mode} tier demoted to "
+                                 f"{codec._fused_mode} (fused_encode {codec.fused_encode})")
+        if len(codec._enc_graphs) != 1:
+            raise AssertionError(f"stf seed {mode} tier: {len(codec._enc_graphs)} "
+                                 "encode graphs, want 1 (the tier did not run)")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        dec = lane.decompress(want["strings"], want["shape"])
+    if not all(torch.equal(a, b) for a, b in zip(want["symbols"], dec["symbols"])):
+        raise AssertionError("stf seed: the fused decompress gave other symbols")
+    print(f"stf at seed weights (no lift; largest scale index {top}): "
+          f"{want['host_encoded']} of {model.num_slices} segments overflowed "
+          "B3's side channel to the host encoder; both tiers ran their graph "
+          "and returned the per-slice stream without the fused flag, "
+          "undemoted; it decodes fused to the same symbols")
+
+
 def sm_clock_mhz():
     """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -932,6 +991,7 @@ def main():
     rows = (phase_attention(dev) + phase_lane_decode(dev, sm_mhz)
             + phase_lane_encode(dev, sm_mhz) + phase_layout_pin(dev))
     launches = {name: phase_codec(dev, smi, name) for name in ("cnn", "stf")}
+    phase_stf_seed_fallback(dev)
     for row in rows:
         # B1's rows count on their model's path, B2-B4's on WACNN's
         path = row.pop("path", "cnn")

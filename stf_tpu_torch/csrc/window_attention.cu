@@ -75,8 +75,8 @@
 // latencies). At N = 16 a block is one warp: 8.4 KB at hd 40 (WACNN),
 // 3.8 KB at hd 16 (STF's every stage). There registers, not shared
 // memory, limit the blocks an SM holds (at most 32), and MINB caps them:
-// 64 a thread at MINB 32 (WINDOW_ATTENTION_HD16_MINB, chosen on the card:
-// PERF.md section 6).
+// 64 a thread at MINB 32, which ran 1.5% faster than 8, 16 or 24 on the
+// card (PERF.md section 6).
 // At hd 16 a head's slice of a qkv row is 64 bytes, so it stays 16-byte
 // aligned for cp.async; S takes 2 k-tiles and P . v 2 n-tiles; rows of
 // hd + 4 = 20 floats keep the fragment loads on 32 distinct banks. Index
@@ -310,10 +310,6 @@ window_attention_kernel(const float* __restrict__ qkv,
   }
 }
 
-#ifndef WINDOW_ATTENTION_HD16_MINB
-#define WINDOW_ATTENTION_HD16_MINB 32
-#endif
-
 template <int WS, int HD, int MINB>
 int launch(const float* qkv, const float* bias, const int32_t* labels,
            float* out, int B, int H, int W, int C, int nh, float scale,
@@ -367,8 +363,7 @@ int stf_window_attention(const void* qkv, const void* bias,
   if (n == 16 && hd == 40)
     return launch<4, 40, 8>(q, bs, lb, o, B, H, W, C, nh, scale, st);
   if (n == 16 && hd == 16)
-    return launch<4, 16, WINDOW_ATTENTION_HD16_MINB>(q, bs, lb, o, B, H, W, C,
-                                                     nh, scale, st);
+    return launch<4, 16, 32>(q, bs, lb, o, B, H, W, C, nh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -57,13 +57,16 @@ def shifted_window_region_labels(
     return mw.transpose(0, 2, 1, 3).reshape(-1, ws * ws)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.cache
 def region_labels(H: int, W: int, window_size: int, shift_size: int,
                   device) -> torch.Tensor:
     """`shifted_window_region_labels` as an int32 tensor on `device`, made
     once per (H, W, window, shift, device). A codec's first call of a
     shape runs eagerly before its CUDA-graph capture, so the capture finds
-    every table made and copies nothing from the host."""
+    every table made and copies nothing from the host. The cache is never
+    trimmed: a captured graph reads its tables by address, and a replay
+    runs no Python that could hold them, so a freed table would be
+    overwritten under the graph. The tables are small and few per size."""
     lab = shifted_window_region_labels(H, W, window_size, shift_size)
     return torch.from_numpy(lab).to(device)
 

@@ -517,6 +517,32 @@ def test_stf_fused_encode_replay_gives_the_per_slice_stream(dev, tier):
     assert dec["x_hat"].shape == (2, 128, 192, 3)
 
 
+def test_stf_decode_replay_keeps_its_shift_labels(dev):
+    """The STF's fused decompress graph reads its shift-region labels by
+    address. Between two replays of the graph, label tables of 300 other
+    map sizes are made, and tensors the size of the graph's own tables
+    are filled with another label: a table the cache had let go would
+    now hold that label. The second replay's x_hat is bit-equal to the
+    first's."""
+    from stf_tpu_torch.layers import region_labels
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    codec = Codec(create_model("stf", seed=0), coder="lane", device=dev)
+    enc = codec.compress(_pattern(64, 64))
+    first = codec.decompress(enc["strings"], enc["shape"])["x_hat"].clone()
+    for h in range(1, 21):
+        for w in range(1, 16):
+            region_labels(4 * h, 4 * w + 400, 4, 2, dev)
+    own = [region_labels(n, n, 4, 2, dev) for n in (32, 16, 8, 4)]
+    fill = [torch.full_like(t, 7) for t in own for _ in range(64)]
+    torch.cuda.synchronize()
+    again = codec.decompress(enc["strings"], enc["shape"])["x_hat"]
+    assert len(codec._graphs) == 1
+    assert torch.equal(again, first)
+    del fill
+
+
 def test_consecutive_fused_compresses_are_independent(dev):
     """Full-tier compresses of three different images replay one graph:
     each gives its own per-slice stream, and an earlier call's symbols

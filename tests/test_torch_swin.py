@@ -138,3 +138,20 @@ def test_drop_path_is_the_identity_in_eval_and_raises_in_training():
     with pytest.raises(NotImplementedError):
         dp.train()(x)
     assert swin.DropPath(0.0).train()(x) is x
+
+
+def test_region_labels_keep_every_table():
+    """A captured CUDA graph reads its shift-region labels by address, so
+    the cache never lets a table go: after tables of 300 other map sizes
+    the first one made is still the one returned, with the labels of
+    `shifted_window_region_labels`."""
+    from stf_tpu_torch.layers import region_labels, shifted_window_region_labels
+
+    dev = torch.device("cpu")
+    first = region_labels(12, 20, 4, 2, dev)
+    for h in range(1, 21):
+        for w in range(1, 16):
+            region_labels(4 * h, 4 * w + 400, 4, 2, dev)
+    assert region_labels(12, 20, 4, 2, dev) is first
+    np.testing.assert_array_equal(first.numpy(),
+                                  shifted_window_region_labels(12, 20, 4, 2))

@@ -16,38 +16,38 @@ def params():
     return pair_from_port(seed=3)[1]
 
 
-def test_jax_params_load_strict_and_round_trip(params):
-    """flax -> state_dict_from_jax -> load_state_dict(strict=True) ->
-    state_dict() -> stf_tpu's import_state_dict gives the original tree
-    back bit for bit."""
-    port = WACNN(**SMALL)
-    port.load_state_dict(state_dict_from_jax(params), strict=True)
-    back = import_state_dict("cnn", params, port.state_dict())
-    want, got = flat_leaves(params), flat_leaves(back)
-    assert set(want) == set(got)
-    for path, leaf in want.items():
-        assert got[path].dtype == leaf.dtype, path
-        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
+# (registry name, port class, small config, keys the bridge must make);
+# STF's cover LayerNorm scales, bias-free reductions and PatchSplit
+# under `downsample`
+CASES = {
+    "cnn": (WACNN, SMALL, ("g_a.4.conv_b.0.attn.qkv.weight", "g_s.1.weight")),
+    "stf": (SymmetricalTransFormer, STF_SMALL, (
+        "patch_embed.norm.weight", "layers.2.blocks.1.attn.qkv.weight",
+        "layers.0.downsample.reduction.weight",
+        "syn_layers.1.downsample.norm.bias", "end_conv.2.weight",
+        "h_mean_s.6.0.weight", "lrp_transforms.3.8.bias")),
+}
 
 
-def test_stf_jax_params_load_strict_and_round_trip():
-    """The STF case of the round trip above: state_dict_from_jax(params,
-    "stf") loads strict into the port's SymmetricalTransFormer, maps every
-    flax leaf to its own key (LayerNorm scales, bias-free reductions,
-    PatchSplit under `downsample`), and import_state_dict("stf", ...) of
-    the port's state_dict gives the tree back bit for bit."""
-    params = pair_from_port(seed=3, name="stf")[1]
-    sd = state_dict_from_jax(params, "stf")
+@pytest.mark.parametrize("name", list(CASES))
+def test_jax_params_load_strict_and_round_trip(params, name):
+    """flax -> state_dict_from_jax(params, name) -> load_state_dict(
+    strict=True) -> state_dict() -> stf_tpu's import_state_dict gives the
+    original tree back bit for bit, every flax leaf mapped to a key of its
+    own. WACNN's call takes the default model name."""
+    if name == "stf":
+        params = pair_from_port(seed=3, name="stf")[1]
+        sd = state_dict_from_jax(params, "stf")
+        assert "layers.0.downsample.reduction.bias" not in sd
+    else:
+        sd = state_dict_from_jax(params)
+    cls, cfg, keys = CASES[name]
     assert len(sd) == len(flat_leaves(params))
-    port = SymmetricalTransFormer(**STF_SMALL)
-    port.load_state_dict(sd, strict=True)
-    for k in ("patch_embed.norm.weight", "layers.2.blocks.1.attn.qkv.weight",
-              "layers.0.downsample.reduction.weight",
-              "syn_layers.1.downsample.norm.bias", "end_conv.2.weight",
-              "h_mean_s.6.0.weight", "lrp_transforms.3.8.bias"):
+    for k in keys:
         assert k in sd, k
-    assert "layers.0.downsample.reduction.bias" not in sd
-    back = import_state_dict("stf", params, port.state_dict())
+    port = cls(**cfg)
+    port.load_state_dict(sd, strict=True)
+    back = import_state_dict(name, params, port.state_dict())
     want, got = flat_leaves(params), flat_leaves(back)
     assert set(want) == set(got)
     for path, leaf in want.items():
@@ -77,22 +77,21 @@ def test_strip_prefixes_matches_jax_package():
     assert strip_prefixes(sd) == jax_strip_prefixes(sd)
 
 
-def test_seeded_models_are_reproducible():
-    a = create_model("cnn", seed=7, **SMALL).state_dict()
-    b = create_model("cnn", seed=7, **SMALL).state_dict()
-    c = create_model("cnn", seed=8, **SMALL).state_dict()
+@pytest.mark.parametrize("name,first,cfg", [
+    ("cnn", "g_a.0.weight", SMALL),
+    ("stf", "patch_embed.proj.weight", STF_SMALL),
+], ids=["cnn", "stf"])
+def test_seeded_models_are_reproducible(name, first, cfg):
+    """create_model(name, seed=s) draws every weight from the seed and
+    raises nothing; STF's at full size too, its LayerNorms at 1 and 0."""
+    a = create_model(name, seed=7, **cfg).state_dict()
+    b = create_model(name, seed=7, **cfg).state_dict()
+    c = create_model(name, seed=8, **cfg).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["g_a.0.weight"], c["g_a.0.weight"])
-
-
-def test_seeded_stf_is_reproducible():
-    """create_model("stf", seed=s) at full size draws every weight from
-    the seed (LayerNorms to 1 and 0) and raises nothing."""
-    a = create_model("stf", seed=7).state_dict()
-    b = create_model("stf", seed=7).state_dict()
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert torch.equal(a["layers.0.blocks.0.norm1.weight"], torch.ones(48))
-    c = create_model("stf", seed=8, **STF_SMALL).state_dict()
-    d = create_model("stf", seed=7, **STF_SMALL).state_dict()
-    assert not torch.equal(c["patch_embed.proj.weight"],
-                           d["patch_embed.proj.weight"])
+    assert not torch.equal(a[first], c[first])
+    if name == "stf":
+        full = create_model("stf", seed=7).state_dict()
+        again = create_model("stf", seed=7).state_dict()
+        assert all(torch.equal(full[k], again[k]) for k in full)
+        assert torch.equal(full["layers.0.blocks.0.norm1.weight"],
+                           torch.ones(48))
