@@ -12,7 +12,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernel B1 (window attention) against its plain PyTorch version at
      WACNN's two attention geometries and STF's four stage geometries
      (window 4, head width 16) for batch 2 with shift labels, two
-     launches bit-equal, timed beside SDPA with the same mask; with the
+     launches bit-equal, timed beside SDPA with the same mask; under
+     autograd (`WindowAttentionFunction`: the kernel forward, the
+     closed-form backward) d qkv and d bias within ATTN_GRAD_TOL of the
+     plain version's autograd gradients at each geometry; with the
      bias x30, no farther than the f32 plain version from an f64 one, at
      the first geometry of each of the three instances;
   4. kernel B2 (lane-rANS decode) against its plain version and the
@@ -48,7 +51,19 @@ Phases (any failure exits non-zero; nothing is caught):
      12 times an analysis and 12 times a synthesis, B4 38 times a fused
      walk (25 packed, 13 transpose). Each path's launch counts are set to
      0 just before it and read just after; B1's STF row takes its
-     launches from the STF path, every other row from WACNN's.
+     launches from the STF path, every other row from WACNN's;
+  9. the trainer, for the full-width WACNN and then STF (`phase_train`):
+     30 steps of `make_train_step` on smooth_batch(8, 256, 256, seed=step)
+     at bench.py's prelude lambda (0.013, 0.008); every loss finite, B1
+     launched by each step exactly as its forward launches it (4 and 24;
+     the backward launches none), every parameter's gradient finite and
+     nonzero after step 1 (but the weights of layers fed only zeros), the
+     aux loss falling; the warm median step time and one warm step's
+     device time by kernel; a checkpoint saved and restored into a fresh
+     trainer with equal states; and the trained model through the lane
+     (per-slice decompress) and host coders, symbols round-tripping and
+     x_hat bit-equal. This path's counts are set to 0 before its steps
+     and read after them.
 
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
@@ -92,6 +107,15 @@ ATTN_GEOMS = (
 )
 # B1 launches in one analysis (= in one synthesis) of each model
 B1_PER_TRANSFORM = {"cnn": 2, "stf": 12}
+# B1's gradients (the Function's closed-form backward) against autograd
+# through the plain version: max abs difference over the largest plain
+# gradient (f32 products summed in other orders; up to 3.3e-7 on an H100)
+ATTN_GRAD_TOL = 1e-5
+# the training phase: steps of batch x size x size smooth_batch crops at
+# bench.py's prelude lambda (bench.py:51); steps after the first
+# TRAIN_WARM are timed
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SIZE, TRAIN_WARM = 30, 8, 256, 5
+TRAIN_LMBDA = {"cnn": 0.013, "stf": 0.008}
 
 
 def smooth_batch(n, h, w, seed):
@@ -177,10 +201,11 @@ def _device_us(evt):
 def profile_call(fn, name, trace=None):
     """(wall s, device-busy s, device events) of one call of `fn` in a
     torch.profiler window of its own: busy is the sum of the device
-    events' self times (the kernels and copies), without the annotation's
-    own device range; `trace` names a Chrome trace file to write. The
-    first window in a process also pays the tracer's start-up, so spend
-    one on an untimed call first."""
+    events' self times (the kernels and copies), without the device spans
+    of record_function ranges (`is_range`; the events keep them); `trace`
+    names a Chrome trace file to write. The first window in a process
+    also pays the tracer's start-up, so spend one on an untimed call
+    first."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -198,7 +223,14 @@ def profile_call(fn, name, trace=None):
         if e.device_type == torch.autograd.DeviceType.CUDA
         and _device_us(e) > 0 and e.key != name
     ]
-    return wall, sum(_device_us(e) for e in events) / 1e6, events
+    # a range's device span (record_function) overlaps the kernels in it
+    busy = sum(_device_us(e) for e in events if not is_range(e))
+    return wall, busy / 1e6, events
+
+
+def is_range(evt):
+    """Whether a profiler event is a record_function range, not a kernel."""
+    return bool(getattr(evt, "is_user_annotation", False))
 
 
 def bound(nbytes, ops):
@@ -248,6 +280,16 @@ def phase_attention(dev):
             q, k, v, attn_mask=mask, scale=scale
         )
         lib_err = (ac.unpartition(sdpa(), BATCH, h, w, ws) - out).abs().max().item()
+        grad_errs = attention_grad_errors(qkv, bias, labels, ws, scale, gen)
+        print(f"B1 {name} ({model}) under autograd: d qkv max abs err "
+              f"{grad_errs[0]:.3g}, d bias {grad_errs[1]:.3g}, each over the "
+              f"largest plain gradient (tolerance {ATTN_GRAD_TOL:g}); eager "
+              f"forward + backward {grad_errs[2]:.4f} ms, plain version's "
+              f"{grad_errs[3]:.4f} ms; the backward's device time "
+              f"{grad_errs[4]:.4f} ms (graph replays)")
+        if not max(grad_errs[:2]) <= ATTN_GRAD_TOL:
+            raise AssertionError(f"B1 {name} {model} {h}x{w}: gradients off by "
+                                 f"{grad_errs[:2]} (relative)")
         kernel = lambda: ac.window_attention(qkv, bias, labels, ws, scale)  # noqa: E731
         ms = graph_ms(kernel, 20)
         eager_ms = cuda_ms(kernel, 50)
@@ -280,6 +322,45 @@ def phase_attention(dev):
             raise AssertionError(f"B1 {name} bias x30: {err} from f64, plain "
                                  f"version {plain_err}")
     return rows
+
+
+def attention_grad_errors(qkv, bias, labels, ws, scale, gen):
+    """B1 under autograd (`WindowAttentionFunction`: the kernel forward and
+    the closed-form backward) against autograd through the plain version,
+    for one random output gradient: (d qkv error, d bias error), each the
+    max abs difference over the largest plain gradient, the eager forward
+    + backward ms of each, and the backward's device ms alone (graph
+    replays of `window_attention_backward`). Checks that the forward
+    launched B1 once."""
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.layers import attention_core as ac
+
+    C = qkv.shape[-1] // 3
+    gout = torch.randn(qkv.shape[:-1] + (C,), device=qkv.device, generator=gen)
+    leaves = lambda: (qkv.clone().requires_grad_(),  # noqa: E731
+                      bias.clone().requires_grad_())
+
+    def grads(fn, q, b):
+        return torch.autograd.grad(fn(q, b, labels, ws, scale), (q, b), gout)
+
+    key = f"window_attention_ws{ws}_hd{C // bias.shape[0]}"
+    before = _native.launch_counts[key]
+    got = grads(ac.window_attention, *leaves())
+    if _native.launch_counts[key] != before + 1:
+        raise AssertionError(f"B1 {key}: the forward under autograd did not "
+                             "launch the kernel once")
+    want = grads(ac.window_attention_plain, *leaves())
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    q, b = leaves()
+    return errs + [
+        cuda_ms(lambda: grads(ac.window_attention, q, b), 5),
+        cuda_ms(lambda: grads(ac.window_attention_plain, q, b), 5),
+        graph_ms(lambda: ac.window_attention_backward(qkv, bias, labels, ws,
+                                                      scale, gout), 5),
+    ]
 
 
 def attention_vs_f64(dev, bias_scale):
@@ -922,6 +1003,221 @@ def phase_stf_seed_fallback(dev):
           "undemoted; it decodes fused to the same symbols")
 
 
+def kernel_group(key):
+    """A kernel's kind by its name: B1, convolution (cuDNN's implicit-GEMM,
+    FFT (with its complex GEMMs and transforms), direct and Winograd
+    kernels), other GEMM (cuBLAS / CUTLASS), the optimizer's fused
+    updates, or the rest (elementwise, reductions, norms, copies)."""
+    k = key.lower()
+    if "window_attention" in k:
+        return "B1"
+    if any(t in k for t in ("implicit_gemm", "cudnn", "fft", "dgrad",
+                            "wgrad", "conv", "winograd", "cf32",
+                            "region_transform")):
+        return "convolution"
+    if "gemm" in k:
+        return "gemm"
+    if "multi_tensor_apply" in k:
+        return "optimizer"
+    return "other"
+
+
+def same_state(a, b):
+    """True when two nested dicts / lists of tensors and plain values are
+    equal, tensors bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_state(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_state(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def phase_train(dev, smi, name):
+    """The trainer on the full-width registry model `name`: TRAIN_STEPS
+    steps of make_train_step on smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+    TRAIN_SIZE, seed=step). Each step's losses must be finite and launch
+    B1 exactly as its forward does (its backward runs PyTorch ops); after
+    the first step every parameter has a finite gradient that is not all
+    zero; the aux loss falls. Prints the first and last losses, the warm
+    median step time and the kernel launches; saves a checkpoint and
+    restores it into a fresh trainer (equal model, optimizer, schedule
+    and generator states); prints B1's backward's device time at a
+    step's shapes and one warm step's device time by kernel; and codes
+    two images with the trained model through the lane coder (per-slice
+    decompress) and the host coder (symbols equal, x_hat bit-equal)."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.layers import attention_core as ac
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.training import TrainState, make_train_step
+    from stf_tpu_torch.training.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from stf_tpu_torch.utils import psnr
+    from stf_tpu_torch.zoo import create_model
+
+    counts = _native.launch_counts
+    b1 = lambda: sum(v for k, v in counts.items()  # noqa: E731
+                     if k.startswith("window_attention"))
+    per_step = 2 * B1_PER_TRANSFORM[name]
+    lmbda = TRAIN_LMBDA[name]
+    model = create_model(name, seed=SEED)
+    state = TrainState(model, dev, seed=SEED)
+    step = make_train_step(model, lmbda)
+    batches = [torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+                                             TRAIN_SIZE, i)).to(dev)
+               for i in range(TRAIN_STEPS)]
+    # Step 1 records which layers saw only zeros: a weight whose input is
+    # zero everywhere has a zero gradient by the chain rule (at seed
+    # weights z can round to 0 everywhere, and z_hat feeds the hyper
+    # synthesis's first convolutions); every other gradient must not be.
+    zero_fed, hooks = {}, []
+    for mname, mod in model.named_modules():
+        if not list(mod.children()) and isinstance(
+                getattr(mod, "weight", None), torch.nn.Parameter):
+            def hook(mod, args, mname=mname):
+                zero_fed[mname] = (zero_fed.get(mname, True)
+                                   and not args[0].any().item())
+            hooks.append(mod.register_forward_pre_hook(hook))
+    history, secs = [], []
+    counts.clear()  # the training path starts here
+    for i, x in enumerate(batches):
+        before = b1()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, x)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name} train step {i + 1}: {m}")
+        if b1() - before != per_step:
+            raise AssertionError(f"{name} train step {i + 1}: {b1() - before} "
+                                 f"B1 launches, want {per_step}")
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            exempt = {f"{k}.weight" for k, z in zero_fed.items() if z}
+            bad = [n for n, p in model.named_parameters()
+                   if p.grad is None or not torch.isfinite(p.grad).all()
+                   or not (p.grad.any() or n in exempt)]
+            if bad:
+                raise AssertionError(f"{name} train step 1: {len(bad)} "
+                                     f"parameters without a finite nonzero "
+                                     f"gradient, e.g. {bad[:5]}")
+        history.append(m)
+    launches = dict(counts)  # the training path ends here
+    aux = [m["aux_loss"] for m in history]
+    if not aux[-1] < aux[0]:
+        raise AssertionError(f"{name}: the aux loss did not fall: {aux}")
+    fmt = lambda ms: "; ".join(  # noqa: E731
+        f"{m['loss']:.4f} (bpp {m['bpp_loss']:.4f}, mse {m['distortion']:.6f},"
+        f" aux {m['aux_loss']:.2f})" for m in ms)
+    print(f"{name} train ({TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}, lambda "
+          f"{lmbda}, {TRAIN_STEPS} steps, launches {launches}): every step "
+          f"finite with {per_step} B1 launches; step 1 gave all "
+          f"{len(list(model.parameters()))} parameters a finite gradient, "
+          f"nonzero but for the weights of layers fed only zeros "
+          f"({sorted(exempt) or 'none'}); losses 1-5: {fmt(history[:5])}; losses "
+          f"{TRAIN_STEPS - 4}-{TRAIN_STEPS}: {fmt(history[-5:])}")
+    warm = secs[TRAIN_WARM:]
+    print(f"{name} train step ({smi}): first {secs[0] * 1e3:.1f} ms; steps "
+          f"{TRAIN_WARM + 1}-{TRAIN_STEPS} median {np.median(warm) * 1e3:.3f} ms "
+          f"(min {min(warm) * 1e3:.3f}, max {max(warm) * 1e3:.3f}); peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+    meta = {"model": name, "lmbda": lmbda, "metric": "mse"}
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(d, state, 0, history[-1]["loss"], meta, True,
+                               history[-1]["loss"])
+        fresh = TrainState(create_model(name, seed=SEED + 1), dev,
+                           seed=SEED + 1)
+        restore_checkpoint(path, fresh)
+    for what in ("state_dict", "optimizer", "aux_optimizer", "lr_scheduler",
+                 "generator", "step"):
+        if not same_state(state.state_dict()[what], fresh.state_dict()[what]):
+            raise AssertionError(f"{name}: restored {what} differs")
+    print(f"{name} checkpoint after step {state.step}: model, both optimizers, "
+          "schedule, generator and step restored equal")
+
+    x = batches[-1]
+    # B1's backward alone at this step's shapes: record one step's calls,
+    # then time each by graph replays
+    calls, backward = [], ac.window_attention_backward
+    ac.window_attention_backward = lambda *a: calls.append(a) or backward(*a)
+    try:
+        step(state, x)
+    finally:
+        ac.window_attention_backward = backward
+    bwd_ms = sum(graph_ms(lambda a=a: backward(*a), 3) for a in calls)
+    print(f"{name} train step: B1's backward (PyTorch ops) {bwd_ms:.3f} ms "
+          f"of device time in {len(calls)} calls (graph replays at the "
+          f"step's shapes; {smi})")
+    del calls
+    profile_call(lambda: step(state, x), "tracer start-up")
+    wall, busy, events = profile_call(lambda: step(state, x), "train step")
+    kernels = sorted((e for e in events if not is_range(e)), key=_device_us,
+                     reverse=True)
+    print(f"{name} profiled warm train step ({smi}): {wall * 1e3:.3f} ms wall, "
+          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%); by "
+          "kernel: " + "; ".join(
+              f"{e.key[:70]} {_device_us(e) / 1e3:.3f} ms in {e.count}"
+              for e in kernels[:14]))
+    groups = {}
+    for e in kernels:
+        kind = kernel_group(e.key)
+        groups[kind] = groups.get(kind, 0.0) + _device_us(e)
+    spans = {e.key: (_device_us(e), e.count) for e in events if is_range(e)}
+    print(f"{name} train step device time by kind: " + "; ".join(
+        f"{k} {v / 1e3:.3f} ms ({100 * v / 1e6 / busy:.1f}%)"
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + "; ranges (device span, overlapping the kernels above): "
+        + "; ".join(f"{k} {us / 1e3:.3f} ms in {n}"
+                    for k, (us, n) in sorted(spans.items())))
+
+    img = (smooth_batch(2, TRAIN_SIZE, TRAIN_SIZE, SEED + 7) * 255).round()
+    img = img.astype(np.uint8)
+    lane = Codec(model, coder="lane", device=dev)
+    host = Codec(model, coder="host", device=dev)
+    lane.fused = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        enc = lane.compress(img)
+        dec = lane.decompress(enc["strings"], enc["shape"])
+        henc = host.compress(img)
+        hdec = host.decompress(henc["strings"], henc["shape"])
+    for what, e, d_ in (("lane", enc, dec), ("host", henc, hdec)):
+        if not all(torch.equal(a, b) for a, b in zip(e["symbols"], d_["symbols"])):
+            raise AssertionError(f"{name} trained {what}: decoded symbols differ")
+    if not torch.equal(dec["x_hat"], hdec["x_hat"]):
+        raise AssertionError(f"{name} trained: lane x_hat is not bit-equal to "
+                             "the host coder's")
+    x_hat = dec["x_hat"]
+    if x_hat.shape != (2, TRAIN_SIZE, TRAIN_SIZE, 3) or not torch.isfinite(x_hat).all():
+        raise AssertionError(f"{name} trained: x_hat {tuple(x_hat.shape)} bad")
+    pixels = 2 * TRAIN_SIZE * TRAIN_SIZE
+    nbytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
+    xf = torch.from_numpy(img).to(dev).float() / 255.0
+    print(f"{name} trained {state.step} steps through the codec "
+          f"(2x{TRAIN_SIZE}x{TRAIN_SIZE}): lane {nbytes * 8 / pixels:.4f} bpp, "
+          f"PSNR {psnr(x_hat, xf).item():.3f} dB, {enc['host_encoded']} of "
+          f"{model.num_slices} segments to the host encoder; symbols round "
+          "trip, lane x_hat bit-equal to host")
+
+
 def sm_clock_mhz():
     """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -992,6 +1288,8 @@ def main():
             + phase_lane_encode(dev, sm_mhz) + phase_layout_pin(dev))
     launches = {name: phase_codec(dev, smi, name) for name in ("cnn", "stf")}
     phase_stf_seed_fallback(dev)
+    for model_name in ("cnn", "stf"):
+        phase_train(dev, smi, model_name)
     for row in rows:
         # B1's rows count on their model's path, B2-B4's on WACNN's
         path = row.pop("path", "cnn")

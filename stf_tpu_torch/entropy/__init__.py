@@ -6,6 +6,7 @@ from .entropy_models import (
     build_eb_tables,
     build_gc_tables,
     gaussian_build_indexes,
+    gaussian_forward,
     gaussian_likelihood,
     get_scale_table,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "build_eb_tables",
     "build_gc_tables",
     "gaussian_build_indexes",
+    "gaussian_forward",
     "gaussian_likelihood",
     "get_scale_table",
 ]

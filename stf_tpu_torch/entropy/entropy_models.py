@@ -1,11 +1,16 @@
 """Entropy models: factorized bottleneck + conditional Gaussian (port of
-`stf_tpu/entropy/entropy_models.py`, eval paths).
+`stf_tpu/entropy/entropy_models.py`).
 
 The bottleneck is an nn.Module with the reference's parameter names
 (`_matrix{i}`, `_bias{i}`, `_factor{i}`, `quantiles`); tensors are NCHW.
 The coding-path CDF tables are built on the host with NumPy/SciPy by the
 same math as the JAX package and quantized by the port's native code,
 so they are integer-identical to the JAX tables for the same parameters.
+
+Training draws its U(-1/2, 1/2) quantization noise from a sampler
+(`stf_tpu_torch.training.sampler.Sampler` or a test's replay of recorded
+draws) in the JAX layouts: (C, 1, B*H*W) for the bottleneck, NHWC for a
+Gaussian-conditioned slice.
 """
 
 import dataclasses
@@ -50,7 +55,8 @@ def get_scale_table(
 
 
 class EntropyBottleneck(nn.Module):
-    """Learned factorized prior (Ballé 2018), eval forward: the latent is
+    """Learned factorized prior (Ballé 2018). Forward: in training,
+    additive U(-1/2, 1/2) noise models quantization; at eval the latent is
     rounded around the channel medians."""
 
     def __init__(self, channels: int, tail_mass: float = 1e-9,
@@ -110,16 +116,31 @@ class EntropyBottleneck(nn.Module):
         """Per-channel medians (C,), detached."""
         return self.quantiles[:, 0, 1].detach()
 
-    def _logits_cumulative(self, inputs):
+    def _logits_cumulative(self, inputs, stop_gradient: bool = False):
+        """Monotone per-channel CDF in logit space; with `stop_gradient`
+        the chain's parameters are detached (the aux loss trains only
+        `quantiles` through it)."""
+        def param(name):
+            t = getattr(self, name)
+            return t.detach() if stop_gradient else t
+
         logits = inputs
         for i in range(self.n_stages):
-            matrix = getattr(self, f"_matrix{i}")
-            logits = torch.matmul(F.softplus(matrix), logits)
-            logits = logits + getattr(self, f"_bias{i}")
+            logits = torch.matmul(F.softplus(param(f"_matrix{i}")), logits)
+            logits = logits + param(f"_bias{i}")
             if i < self.n_stages - 1:
-                factor = getattr(self, f"_factor{i}")
+                factor = param(f"_factor{i}")
                 logits = logits + torch.tanh(factor) * torch.tanh(logits)
         return logits
+
+    def aux_loss(self):
+        """|logits(quantiles) - [-t, 0, t]| summed, t = log(2/tail_mass - 1),
+        through the detached chain: its gradient reaches only `quantiles`."""
+        t = math.log(2 / self.tail_mass - 1)
+        targets = torch.tensor([-t, 0.0, t], dtype=torch.float32,
+                               device=self.quantiles.device)
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        return torch.abs(logits - targets).sum()
 
     def _likelihood(self, values):
         lower = self._logits_cumulative(values - 0.5)
@@ -127,12 +148,17 @@ class EntropyBottleneck(nn.Module):
         sign = -torch.sign(lower + upper).detach()
         return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
 
-    def forward(self, x):
-        """x: NCHW. Returns (x_hat, likelihoods), both NCHW."""
+    def forward(self, x, training: bool = False, sampler=None):
+        """x: NCHW. Returns (x_tilde, likelihoods), both NCHW: x plus
+        noise drawn from `sampler` in training, else x rounded around the
+        medians."""
         B, C, H, W = x.shape
         values = x.permute(1, 0, 2, 3).reshape(C, 1, -1)
-        medians = self.medians()[:, None, None]
-        outputs = torch.round(values - medians) + medians
+        if training:
+            outputs = values + sampler.uniform(values.shape, values)
+        else:
+            medians = self.medians()[:, None, None]
+            outputs = torch.round(values - medians) + medians
         likelihood = lower_bound(self._likelihood(outputs), self.likelihood_bound)
         outputs = outputs.reshape(C, B, H, W).permute(1, 0, 2, 3)
         likelihood = likelihood.reshape(C, B, H, W).permute(1, 0, 2, 3)
@@ -163,6 +189,21 @@ def gaussian_likelihood(values, scales, means=None,
     if likelihood_bound > 0:
         likelihood = lower_bound(likelihood, likelihood_bound)
     return likelihood
+
+
+def gaussian_forward(x, scales, means=None, training: bool = False,
+                     sampler=None):
+    """(x_tilde, likelihoods) of NCHW x: noise quantization in training
+    (drawn from `sampler` in x's NHWC layout, as the JAX package draws
+    it), rounding around the means at eval."""
+    if training:
+        noise = sampler.uniform(x.permute(0, 2, 3, 1).shape, x)
+        outputs = x + noise.permute(0, 3, 1, 2)
+    elif means is not None:
+        outputs = torch.round(x - means) + means
+    else:
+        outputs = torch.round(x)
+    return outputs, gaussian_likelihood(outputs, scales, means)
 
 
 def gaussian_build_indexes(scales, scale_table: torch.Tensor):

@@ -12,6 +12,16 @@ penalty (-100 across shift regions, the reference's SW-MSA value) comes
 from the (nW, N) per-token region labels. Windows are computed one by one
 (the JAX module's packing of several windows per 128-token tile is a TPU
 device and has no counterpart here).
+
+Gradients. On CUDA tensors that need a gradient, `window_attention` runs
+B1 inside `WindowAttentionFunction`: the forward launches the kernel as
+the eval path does and saves qkv, bias and labels; the backward
+recomputes the softmax from them in PyTorch ops and returns d qkv and
+d bias by the closed form (`window_attention_backward`). The JAX package
+has no backward kernel for `_attn_kernel` either (it trains through its
+plain core), so B1 has none. Under `torch.no_grad()`, inference mode and
+the codec's CUDA-graph captures nothing needs a gradient, and the
+wrapper launches B1 directly, as before.
 """
 
 import ctypes
@@ -47,32 +57,103 @@ def shift_penalty(labels: torch.Tensor) -> torch.Tensor:
     return torch.where(diff, -100.0, 0.0).to(torch.float32)
 
 
-def window_attention_plain(qkv, bias, labels, window: int, scale: float):
-    """Plain PyTorch version of kernel B1 (same signature and layouts)."""
-    B, H, W, _ = qkv.shape
-    nh = bias.shape[0]
-    q, k, v = partition_qkv(qkv, window, nh)
+def partition(x: torch.Tensor, window: int, num_heads: int):
+    """(B, H, W, C) -> (B*nW, nh, N, hd), the layout of `partition_qkv`'s
+    q, k and v."""
+    B, H, W, C = x.shape
+    ws, hd = window, C // num_heads
+    t = x.reshape(B, H // ws, ws, W // ws, ws, num_heads, hd)
+    return t.permute(0, 1, 3, 5, 2, 4, 6).reshape(-1, num_heads, ws * ws, hd)
+
+
+def _probs(q, k, bias, labels, B: int, scale: float):
+    """softmax(q*scale . k^T + bias[h] + shift penalty) over windows."""
     attn = torch.matmul(q * scale, k.transpose(-2, -1))  # (B*nW, nh, N, N)
     attn = attn + bias[None]
     if labels is not None:
         nW, N = labels.shape
+        nh = bias.shape[0]
         attn = (
             attn.reshape(B, nW, nh, N, N) + shift_penalty(labels)[None, :, None]
         ).reshape(attn.shape)
-    attn = torch.softmax(attn, dim=-1)
+    return torch.softmax(attn, dim=-1)
+
+
+def window_attention_plain(qkv, bias, labels, window: int, scale: float):
+    """Plain PyTorch version of kernel B1 (same signature and layouts)."""
+    B, H, W, _ = qkv.shape
+    q, k, v = partition_qkv(qkv, window, bias.shape[0])
+    attn = _probs(q, k, bias, labels, B, scale)
     return unpartition(torch.matmul(attn, v), B, H, W, window)
+
+
+def window_attention_backward(qkv, bias, labels, window: int, scale: float,
+                              grad_out):
+    """(d qkv, d bias) of `window_attention_plain` at these inputs for the
+    output gradient `grad_out` (B, H, W, C), by the closed form: with
+    P = softmax(S) and dO the window-partitioned grad_out,
+    dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)),
+    dq = scale dS k, dk = scale dS^T q, d bias = dS summed over windows.
+    P is recomputed from qkv, bias and labels."""
+    B, H, W, _ = qkv.shape
+    nh = bias.shape[0]
+    q, k, v = partition_qkv(qkv, window, nh)
+    p = _probs(q, k, bias, labels, B, scale)
+    do = partition(grad_out, window, nh)
+    dv = torch.matmul(p.transpose(-2, -1), do)
+    dp = torch.matmul(do, v.transpose(-2, -1))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-2, -1), q) * scale
+    dqkv = torch.cat([unpartition(t, B, H, W, window) for t in (dq, dk, dv)],
+                     dim=-1)
+    return dqkv, ds.sum(0)
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """B1 with a gradient: the forward is the kernel (the plain version for
+    CPU tensors), the backward `window_attention_backward`. Labels, window
+    and scale take no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, labels, window: int, scale: float):
+        ctx.save_for_backward(qkv, bias, labels)
+        ctx.window, ctx.scale = window, scale
+        if qkv.device.type == "cpu":
+            return window_attention_plain(qkv, bias, labels, window, scale)
+        return _launch(qkv, bias, labels, window, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        qkv, bias, labels = ctx.saved_tensors
+        # a profiler range, so a trace can separate B1's backward
+        with torch.profiler.record_function("window_attention_backward"):
+            dqkv, dbias = window_attention_backward(
+                qkv, bias, labels, ctx.window, ctx.scale, grad_out
+            )
+        return (dqkv if ctx.needs_input_grad[0] else None,
+                dbias if ctx.needs_input_grad[1] else None, None, None, None)
 
 
 def window_attention(qkv, bias, labels, window: int, scale: float):
     """Attention over ws x ws windows of the (B, H, W, 3C) f32 qkv map ->
     (B, H, W, C). bias: (nh, N, N) f32 gathered relative-position bias;
     labels: (nW, N) int32 shift-region labels, or None for unshifted
-    windows. On CUDA tensors this launches kernel B1; on CPU tensors it
-    runs `window_attention_plain`."""
+    windows. On CUDA tensors this launches kernel B1, through
+    `WindowAttentionFunction` when qkv or bias needs a gradient; on CPU
+    tensors it runs `window_attention_plain`, which autograd
+    differentiates."""
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, bias, labels, window, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return WindowAttentionFunction.apply(qkv, bias, labels, window, scale)
+    return _launch(qkv, bias, labels, window, scale)
+
+
+def _launch(qkv, bias, labels, window: int, scale: float):
+    """Kernel B1 on CUDA tensors, after checking every operand."""
     dev = qkv.device
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, H, W, 3C), got {tuple(qkv.shape)}")

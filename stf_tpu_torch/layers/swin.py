@@ -49,21 +49,29 @@ class Mlp(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth on a residual branch: the identity in eval. The
-    port has no trainer yet, so a module in training mode with a nonzero
-    rate raises rather than skip the drop."""
+    """Per-sample stochastic depth on a residual branch (`swin.py:43-55`
+    of the JAX package): in training mode with a nonzero rate, each
+    sample's branch is kept with probability keep = 1 - rate and scaled
+    by 1/keep, its Bernoulli(keep) draw of shape (B, 1, 1, 1) taken from
+    `sampler`; the identity in eval mode. The draws come only from an
+    explicit sampler (the trainer's), so training mode without one
+    raises rather than draw from torch's global generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
+    def forward(self, x, sampler=None):
+        if not (self.training and self.rate > 0.0):
+            return x
+        if sampler is None:
             raise NotImplementedError(
-                "stochastic depth in training is not ported yet; call "
-                "model.eval()"
+                "stochastic depth in training draws from an explicit "
+                "sampler: pass one (the trainer does) or call model.eval()"
             )
-        return x
+        keep = 1.0 - self.rate
+        mask = sampler.bernoulli(keep, (x.shape[0],) + (1,) * (x.dim() - 1), x)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class SwinTransformerBlock(nn.Module):
@@ -85,7 +93,7 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x):
+    def forward(self, x, sampler=None):
         _, H, W, _ = x.shape
         ws, ss = self.window_size, self.shift_size
         shortcut = x
@@ -102,8 +110,8 @@ class SwinTransformerBlock(nn.Module):
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         if pad_b or pad_r:
             x = x[:, :H, :W, :]
-        x = shortcut + self.drop_path(x)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = shortcut + self.drop_path(x, sampler)
+        return x + self.drop_path(self.mlp(self.norm2(x)), sampler)
 
 
 class PatchMerging(nn.Module):
@@ -161,7 +169,7 @@ class BasicLayer(nn.Module):
     """One Swin stage (`stf.py:262-347`): `depth` blocks, shift 0 and
     window_size // 2 alternating, then `downsample`: PatchMerging for
     resample="merge" (analysis), PatchSplit for "split" (synthesis), or
-    none."""
+    none. `sampler` feeds the blocks' DropPath in training."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int = 4, mlp_ratio: float = 4.0,
@@ -183,7 +191,7 @@ class BasicLayer(nn.Module):
                              f"{resample!r}")
         self.downsample = resamplers[resample](dim) if resample else None
 
-    def forward(self, x):
+    def forward(self, x, sampler=None):
         for block in self.blocks:
-            x = block(x)
+            x = block(x) if sampler is None else block(x, sampler)
         return x if self.downsample is None else self.downsample(x)

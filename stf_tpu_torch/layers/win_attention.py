@@ -66,9 +66,13 @@ def region_labels(H: int, W: int, window_size: int, shift_size: int,
     every table made and copies nothing from the host. The cache is never
     trimmed: a captured graph reads its tables by address, and a replay
     runs no Python that could hold them, so a freed table would be
-    overwritten under the graph. The tables are small and few per size."""
+    overwritten under the graph. The tables are small and few per size.
+    A table is made outside inference mode even when the codec asks for it
+    inside: training reuses it, and autograd cannot save an inference
+    tensor for the backward."""
     lab = shifted_window_region_labels(H, W, window_size, shift_size)
-    return torch.from_numpy(lab).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(lab).to(device)
 
 
 class WindowAttention(nn.Module):

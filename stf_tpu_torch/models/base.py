@@ -5,7 +5,11 @@ reference family (`compressai/models/cnn.py:141-332`): hyper-latent z via
 h_a, z_hat rounded around the medians, hyper synthesis into per-latent
 means/scales, and a slice loop where slice i conditions on up to
 `max_support_slices` decoded slices, with a latent-response-prediction
-correction. This slice of the port carries the eval paths only.
+correction. `forward(x, training=True, sampler=...)` is the training
+forward of `stf_tpu/models/base.py:125-174`: noisy likelihoods,
+straight-through rounding; its random draws come from `sampler` in the
+JAX package's order (the analysis's DropPath masks, z's noise, each
+slice's noise, the synthesis's masks).
 
 Layouts: `forward` takes and returns NHWC like the JAX model; the
 coding-path methods the Codec drives (`analyze`, `hyper_synthesize`,
@@ -19,8 +23,9 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..entropy import gaussian_build_indexes, gaussian_likelihood
+from ..entropy import gaussian_build_indexes, gaussian_forward
 from ..layers.conv import conv3x3, subpel_conv3x3
+from ..ops import ste_round
 
 
 def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int]):
@@ -85,10 +90,10 @@ class ChannelARModel(nn.Module):
     hyper_upsample = 4
     analysis_downsample = 16  # y is ceil(H/16) x ceil(W/16) of the image
 
-    def analysis(self, x):
+    def analysis(self, x, sampler=None):
         return self.g_a(x)
 
-    def synthesis(self, y_hat):
+    def synthesis(self, y_hat, sampler=None):
         return self.g_s(y_hat)
 
     # -- slice helpers --------------------------------------------------------
@@ -117,26 +122,31 @@ class ChannelARModel(nn.Module):
         lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
         return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
 
-    # -- eval forward ---------------------------------------------------------
+    # -- forward ----------------------------------------------------------------
 
-    def forward(self, x) -> Dict:
+    def forward(self, x, training: bool = False, sampler=None) -> Dict:
         """x: NHWC float in [0, 1]. Returns the unclipped NHWC x_hat and NHWC
-        likelihoods {"y", "z"}, rounding (eval) quantization."""
-        y = self.analysis(x.permute(0, 3, 1, 2).contiguous())
-        y_hat, likelihoods = self.entropy_forward(y)
+        likelihoods {"y", "z"}: rounding quantization, or in training
+        noise drawn from `sampler` and straight-through rounding."""
+        if training and sampler is None:
+            raise ValueError("the training forward draws its noise from a "
+                             "sampler; none was given")
+        y = self.analysis(x.permute(0, 3, 1, 2).contiguous(), sampler)
+        y_hat, likelihoods = self.entropy_forward(y, training, sampler)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return {
-            "x_hat": nhwc(self.synthesis(y_hat)),
+            "x_hat": nhwc(self.synthesis(y_hat, sampler)),
             "likelihoods": {k: nhwc(v) for k, v in likelihoods.items()},
         }
 
-    def entropy_forward(self, y):
+    def entropy_forward(self, y, training: bool = False, sampler=None):
         """Hyper path + channel-AR slice loop on NCHW y; returns (y_hat,
         likelihoods)."""
         z = self.h_a(y)
-        _, z_likelihoods = self.entropy_bottleneck(z)
+        _, z_likelihoods = self.entropy_bottleneck(z, training, sampler)
         medians = self.entropy_bottleneck.medians()[None, :, None, None]
-        z_hat = torch.round(z - medians) + medians
+        rnd = ste_round if training else torch.round
+        z_hat = rnd(z - medians) + medians
         latent_means, latent_scales = self.hyper_synthesize(
             z_hat, (y.shape[2], y.shape[3])
         )
@@ -145,12 +155,16 @@ class ChannelARModel(nn.Module):
             mu, scale, mean_support = self._slice_mu_scale(
                 i, latent_means, latent_scales, self._support(y_hat_slices)
             )
-            y_hat_slice = torch.round(y_slice - mu) + mu
-            y_likelihoods.append(gaussian_likelihood(y_hat_slice, scale, mu))
+            y_hat_slice = rnd(y_slice - mu) + mu
+            _, lik = gaussian_forward(y_slice, scale, mu, training, sampler)
+            y_likelihoods.append(lik)
             y_hat_slice = y_hat_slice + self._lrp(i, mean_support, y_hat_slice)
             y_hat_slices.append(y_hat_slice)
         likelihoods = {"y": torch.cat(y_likelihoods, dim=1), "z": z_likelihoods}
         return torch.cat(y_hat_slices, dim=1), likelihoods
+
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()
 
     # -- coding-path methods (NCHW), driven by models/codec.py ----------------
 

@@ -57,6 +57,7 @@ from ..entropy import (
     build_gc_tables,
     get_scale_table,
 )
+from ..utils.numerics import use_f32_policy
 
 _HASH_MUL = 2654435761
 _HASH_ADD = 97531
@@ -198,10 +199,7 @@ class Codec:
         self._fused_mode = "split" if fused_encode == "split" else "full"
         self.device = default_device() if device is None else torch.device(device)
         # one fixed numerical policy, so encoder and decoder agree bitwise
-        torch.backends.cudnn.benchmark = False
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        use_f32_policy()
         self.model = model.to(self.device).eval()
         self.scale_table = (
             np.asarray(scale_table, np.float32)

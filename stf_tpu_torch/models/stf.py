@@ -13,13 +13,17 @@ torch keys:
     h_scale_s N -> 240 -> 288 (subpel) -> 336 -> 384 (subpel) -> 384
   context: 12 slices, at most 6 of them as support, WACNN's slice stacks
 `analysis` and `synthesis` take and return NCHW like every ChannelARModel;
-the Swin stages run on NHWC maps inside. Eval only: DropPath raises in
-training mode (the trainer is not ported), and the DYSTF teacher output
+the Swin stages run on NHWC maps inside. Stochastic depth: drop-path rates
+spaced by linspace from 0 to `drop_path_rate` over the analysis blocks
+(`stf.py:62,71` of the JAX package), the same list for the synthesis's
+blocks; in training mode each block draws its masks from the sampler
+`analysis` and `synthesis` are given. The DYSTF teacher output
 (`is_teacher`) is not ported.
 """
 
 from typing import Sequence
 
+import numpy as np
 import torch.nn as nn
 
 from ..entropy import EntropyBottleneck
@@ -51,8 +55,7 @@ class SymmetricalTransFormer(ChannelARModel):
         self.num_slices = num_slices
         self.max_support_slices = num_slices // 2
         self.analysis_downsample = patch_size * 2 ** (n - 1)
-        total = sum(depths)
-        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
 
         def stages(dims, stage_depths, heads, resample):
             out, start = nn.ModuleList(), 0
@@ -90,16 +93,16 @@ class SymmetricalTransFormer(ChannelARModel):
         )
         self.entropy_bottleneck = EntropyBottleneck(N)
 
-    def analysis(self, x):
+    def analysis(self, x, sampler=None):
         """NCHW image -> NCHW y."""
         x = self.patch_embed(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, sampler)
         return x.permute(0, 3, 1, 2).contiguous()
 
-    def synthesis(self, y_hat):
+    def synthesis(self, y_hat, sampler=None):
         """NCHW y_hat -> NCHW x_hat (unclipped)."""
         x = y_hat.permute(0, 2, 3, 1).contiguous()
         for layer in self.syn_layers:
-            x = layer(x)
+            x = layer(x, sampler)
         return self.end_conv(x.permute(0, 3, 1, 2).contiguous())

@@ -1,3 +1,3 @@
-from .metrics import psnr
+from .metrics import ms_ssim, psnr, ssim
 
-__all__ = ["psnr"]
+__all__ = ["ms_ssim", "psnr", "ssim"]

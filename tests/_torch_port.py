@@ -6,6 +6,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from torch import nn
 
@@ -109,3 +110,15 @@ def jax_walk_indexes(jcodec, x):
 
     jcodec._walk_slices(lm, ls, get_symbols)
     return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread for a module that imports this fixture: under
+    the suite's parallel workers torch's default of a thread a core
+    oversubscribes the machine, and its small ops then wait on each
+    other's spinning threads (a train step ran ~45x slower than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

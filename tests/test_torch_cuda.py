@@ -54,6 +54,38 @@ def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
     assert (out - plain).abs().max().item() <= 1e-5
 
 
+# B1 under autograd (`WindowAttentionFunction`: the kernel forward, the
+# closed-form backward in PyTorch ops) against autograd through the plain
+# version: each gradient within 1e-5 of the largest plain gradient (f32
+# products summed in other orders)
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+def test_window_attention_gradients_match_plain(dev, ws, hd, shifted):
+    qkv, bias, labels = _attn_inputs(dev, ws, hd, shifted, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    gout = torch.randn(qkv.shape[:-1] + (qkv.shape[-1] // 3,), device=dev,
+                       generator=g)
+
+    def grads(fn):
+        q, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        out = fn(q, b, labels, ws, hd ** -0.5)
+        return out, torch.autograd.grad(out, (q, b), gout)
+
+    key = f"window_attention_ws{ws}_hd{hd}"
+    before = _native.launch_counts[key]
+    out, got = grads(ac.window_attention)
+    assert _native.launch_counts[key] == before + 1  # the forward is B1
+    assert out.grad_fn is not None
+    plain, want = grads(ac.window_attention_plain)
+    torch.cuda.synchronize()
+    assert (out - plain).abs().max().item() <= 1e-5
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    with torch.no_grad():  # no gradient wanted: the kernel alone
+        assert ac.window_attention(qkv.requires_grad_(), bias, labels, ws,
+                                   hd ** -0.5).grad_fn is None
+
+
 # batch 1; one window; 15 windows (no multiple of the head group or of a
 # tile); the bias x30 on WACNN's full maps at a 512x768 input, logits of
 # about +-100, where a softmax without its max subtracted overflows and the
@@ -605,3 +637,96 @@ def test_encode_and_decode_graphs_share_one_pool_and_stay_bounded(dev):
     assert not codec._enc_verified
     assert codec.compress(_pattern(*sizes[0]))["strings"] == encs[0]["strings"]
     assert len(codec._enc_graphs) == len(codec._enc_verified) == 1
+
+
+class _Replay:
+    """A sampler that records its draws (`record`) or hands back recorded
+    ones (`replay`), on any device: the CPU and the card draw other
+    numbers from one seed."""
+
+    def __init__(self, sampler=None, draws=None):
+        self.sampler, self.draws = sampler, draws
+        self.recorded = []
+
+    def _next(self, kind, draw, like):
+        if self.draws is None:
+            t = draw()
+            self.recorded.append((kind, t.cpu()))
+            return t
+        k, t = self.draws.pop(0)
+        assert k == kind
+        return t.to(like.device)
+
+    def uniform(self, shape, like):
+        return self._next("u", lambda: self.sampler.uniform(shape, like), like)
+
+    def bernoulli(self, p, shape, like):
+        return self._next("b", lambda: self.sampler.bernoulli(p, shape, like),
+                          like)
+
+
+# the card's step against the CPU's (cuDNN's f32 convolutions, FFT and
+# implicit GEMM, sum in other orders); measured on an H100: loss terms
+# within 6.3e-8, gradients within 6.0e-6 of each tensor's largest
+LOSS_RTOL_CARD = 1e-5
+GRAD_TOL_CARD = 1e-4  # of each tensor's largest CPU gradient
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_train_step_on_the_card_matches_the_cpu(dev, name):
+    """One train step on the card (B1's forward under autograd) and on the
+    CPU (the plain version), from the same weights, batch and draws, at
+    64x64, batch 2: loss terms within LOSS_RTOL_CARD, each gradient
+    within GRAD_TOL_CARD of the tensor's largest CPU gradient. The WACNN
+    keeps its widths (B1's instances are at head widths 24 and 40) with 4
+    slices; the STF is the small one of the CPU tests (head width 16)."""
+    import copy
+
+    from stf_tpu_torch.models import SymmetricalTransFormer, WACNN, init_weights
+    from stf_tpu_torch.training import TrainState, make_train_step
+
+    # init_weights' own scale: at He scale (22 bpp) the WACNN's card and
+    # CPU gradients differed by up to 9% of a tensor's largest, as f32
+    # differences flipping roundings of y - mu would do
+    model = init_weights(
+        WACNN(num_slices=4, max_support_slices=2) if name == "cnn"
+        else SymmetricalTransFormer(embed_dim=16, depths=(1, 1, 2, 1),
+                                    num_heads=(1, 2, 4, 8), num_slices=4),
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.random((2, 64, 64, 3)) * 0.4 + 0.3)
+                         .astype(np.float32))
+    b1 = lambda: sum(v for k, v in _native.launch_counts.items()  # noqa: E731
+                     if k.startswith("window_attention"))
+    runs, draws = {}, None
+    for where in ("cpu", "cuda"):
+        m = copy.deepcopy(model)
+        state = TrainState(m, where, seed=5)
+        sampler = state.sampler = _Replay(state.sampler, draws)
+        grads = {}
+        update = state.apply_gradients
+
+        def apply_gradients(m=m, grads=grads, update=update):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in m.named_parameters()})
+            update()
+
+        state.apply_gradients = apply_gradients
+        before = b1()
+        metrics = make_train_step(m, 0.013)(state, x.to(where))
+        runs[where] = ({k: float(v) for k, v in metrics.items()}, grads,
+                       b1() - before)
+        draws = sampler.recorded
+    assert sampler.draws == []  # the card's step took every CPU draw
+    (cm, cg, cl), (gm, gg, gl) = runs["cpu"], runs["cuda"]
+    assert cl == 0 and gl == (4 if name == "cnn" else 10)
+    assert cg.keys() == gg.keys()
+    loss_err = {k: abs(gm[k] / cm[k] - 1) for k in cm}
+    # a weight fed only zeros (z_hat at init) has a zero gradient on both
+    grad_err = {n: (gg[n] - w).abs().max().item() / (w.abs().max().item() or 1)
+                for n, w in cg.items()}
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{name}: loss terms' relative errors {loss_err}; worst "
+          f"gradients {worst}")
+    assert all(e <= LOSS_RTOL_CARD for e in loss_err.values()), loss_err
+    assert all(e <= GRAD_TOL_CARD for e in grad_err.values()), worst
