@@ -60,7 +60,12 @@ Phases (any failure exits non-zero; nothing is caught):
      nonzero after step 1 (but the weights of layers fed only zeros), the
      aux loss falling; the warm median step time and one warm step's
      device time by kernel; a checkpoint saved and restored into a fresh
-     trainer with equal states; and the trained model through the lane
+     trainer with equal states; B1 at the shapes and data of one step's
+     calls (batch 8: WACNN's 64x64x192 and 16x16x320 maps, STF's
+     128x128x48 down to 16x16x384), its forward within ATTN_TOL of the
+     plain version and its Function's d qkv and d bias, for the step's
+     own output gradients, within ATTN_GRAD_TOL of autograd through the
+     plain version; and the trained model through the lane
      (per-slice decompress) and host coders, symbols round-tripping and
      x_hat bit-equal. This path's counts are set to 0 before its steps
      and read after them.
@@ -280,19 +285,30 @@ def phase_attention(dev):
             q, k, v, attn_mask=mask, scale=scale
         )
         lib_err = (ac.unpartition(sdpa(), BATCH, h, w, ws) - out).abs().max().item()
-        grad_errs = attention_grad_errors(qkv, bias, labels, ws, scale, gen)
+        gout = torch.randn(out.shape, device=dev, generator=gen)
+        grad_errs = attention_grad_errors(qkv, bias, labels, ws, scale, gout)
+        if not max(grad_errs) <= ATTN_GRAD_TOL:
+            raise AssertionError(f"B1 {name} {model} {h}x{w}: gradients off by "
+                                 f"{grad_errs} (relative)")
+        q_, b_ = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        step_ms = [cuda_ms(lambda f=f: torch.autograd.grad(
+            f(q_, b_, labels, ws, scale), (q_, b_), gout), 5)
+            for f in (ac.window_attention, ac.window_attention_plain)]
+        bwd_ms = graph_ms(lambda: ac.window_attention_backward(
+            qkv, bias, labels, ws, scale, gout), 5)
         print(f"B1 {name} ({model}) under autograd: d qkv max abs err "
               f"{grad_errs[0]:.3g}, d bias {grad_errs[1]:.3g}, each over the "
               f"largest plain gradient (tolerance {ATTN_GRAD_TOL:g}); eager "
-              f"forward + backward {grad_errs[2]:.4f} ms, plain version's "
-              f"{grad_errs[3]:.4f} ms; the backward's device time "
-              f"{grad_errs[4]:.4f} ms (graph replays)")
-        if not max(grad_errs[:2]) <= ATTN_GRAD_TOL:
-            raise AssertionError(f"B1 {name} {model} {h}x{w}: gradients off by "
-                                 f"{grad_errs[:2]} (relative)")
+              f"forward + backward {step_ms[0]:.4f} ms, plain version's "
+              f"{step_ms[1]:.4f} ms; the backward's device time "
+              f"{bwd_ms:.4f} ms (graph replays)")
         kernel = lambda: ac.window_attention(qkv, bias, labels, ws, scale)  # noqa: E731
         ms = graph_ms(kernel, 20)
         eager_ms = cuda_ms(kernel, 50)
+        # the same launch without the autograd Function around it: the
+        # host cost of entering the Function on the no-gradient path
+        direct_ms = cuda_ms(
+            lambda: ac._launch(qkv, bias, labels, ws, scale), 50)
         plain_ms = graph_ms(
             lambda: ac.window_attention_plain(qkv, bias, labels, ws, scale), 5
         )
@@ -302,7 +318,8 @@ def phase_attention(dev):
         bound_ms, bound_by = bound(nbytes, ops)
         print(f"B1 {name} ({model}): qkv {tuple(qkv.shape)} max_abs_err "
               f"{err:.3g} deterministic (sdpa {lib_err:.3g}) kernel {ms:.4f} ms "
-              f"(eager per call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms "
+              f"(eager per call {eager_ms:.4f} ms; without the autograd "
+              f"Function {direct_ms:.4f} ms) plain {plain_ms:.4f} ms "
               f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); "
               f"{100 * bound_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x sdpa")
         if all(r["name"] != name for r in rows):
@@ -324,43 +341,31 @@ def phase_attention(dev):
     return rows
 
 
-def attention_grad_errors(qkv, bias, labels, ws, scale, gen):
+def attention_grad_errors(qkv, bias, labels, ws, scale, gout):
     """B1 under autograd (`WindowAttentionFunction`: the kernel forward and
     the closed-form backward) against autograd through the plain version,
-    for one random output gradient: (d qkv error, d bias error), each the
-    max abs difference over the largest plain gradient, the eager forward
-    + backward ms of each, and the backward's device ms alone (graph
-    replays of `window_attention_backward`). Checks that the forward
-    launched B1 once."""
+    for the output gradient `gout`: [d qkv error, d bias error], each the
+    max abs difference over the largest plain gradient. Checks that the
+    forward launched B1 once."""
     import torch
 
     from stf_tpu_torch import _native
     from stf_tpu_torch.layers import attention_core as ac
 
-    C = qkv.shape[-1] // 3
-    gout = torch.randn(qkv.shape[:-1] + (C,), device=qkv.device, generator=gen)
-    leaves = lambda: (qkv.clone().requires_grad_(),  # noqa: E731
-                      bias.clone().requires_grad_())
-
-    def grads(fn, q, b):
+    def grads(fn):
+        q = qkv.detach().clone().requires_grad_()
+        b = bias.detach().clone().requires_grad_()
         return torch.autograd.grad(fn(q, b, labels, ws, scale), (q, b), gout)
 
-    key = f"window_attention_ws{ws}_hd{C // bias.shape[0]}"
+    key = f"window_attention_ws{ws}_hd{qkv.shape[-1] // 3 // bias.shape[0]}"
     before = _native.launch_counts[key]
-    got = grads(ac.window_attention, *leaves())
+    got = grads(ac.window_attention)
     if _native.launch_counts[key] != before + 1:
         raise AssertionError(f"B1 {key}: the forward under autograd did not "
                              "launch the kernel once")
-    want = grads(ac.window_attention_plain, *leaves())
-    errs = [((g - w).abs().max() / w.abs().max()).item()
+    want = grads(ac.window_attention_plain)
+    return [((g - w).abs().max() / w.abs().max()).item()
             for g, w in zip(got, want)]
-    q, b = leaves()
-    return errs + [
-        cuda_ms(lambda: grads(ac.window_attention, q, b), 5),
-        cuda_ms(lambda: grads(ac.window_attention_plain, q, b), 5),
-        graph_ms(lambda: ac.window_attention_backward(qkv, bias, labels, ws,
-                                                      scale, gout), 5),
-    ]
 
 
 def attention_vs_f64(dev, bias_scale):
@@ -1048,8 +1053,10 @@ def phase_train(dev, smi, name):
     zero; the aux loss falls. Prints the first and last losses, the warm
     median step time and the kernel launches; saves a checkpoint and
     restores it into a fresh trainer (equal model, optimizer, schedule
-    and generator states); prints B1's backward's device time at a
-    step's shapes and one warm step's device time by kernel; and codes
+    and generator states); records one step's B1 calls and holds each,
+    forward and gradients, against the plain version at its shapes and
+    data; prints B1's backward's device time at those shapes and one
+    warm step's device time by kernel; and codes
     two images with the trained model through the lane coder (per-slice
     decompress) and the host coder (symbols equal, x_hat bit-equal)."""
     import tempfile
@@ -1162,6 +1169,31 @@ def phase_train(dev, smi, name):
         step(state, x)
     finally:
         ac.window_attention_backward = backward
+    # B1 at the step's own shapes and data: for each recorded call, the
+    # kernel against the plain version (max abs error over the larger of
+    # 1 and the largest plain output, within ATTN_TOL) and the Function's
+    # gradients for the step's output gradient against autograd through
+    # the plain version (within ATTN_GRAD_TOL, as in phase 3)
+    worst = {}
+    for qkv, bias, labels, ws, scale, gout in calls:
+        out = ac._launch(qkv, bias, labels, ws, scale)
+        plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
+        errs = [(out - plain).abs().max().item()
+                / max(1.0, plain.abs().max().item())]
+        errs += attention_grad_errors(qkv, bias, labels, ws, scale, gout)
+        if not (errs[0] <= ATTN_TOL and max(errs[1:]) <= ATTN_GRAD_TOL):
+            raise AssertionError(
+                f"{name} train step: B1 at qkv {tuple(qkv.shape)} (shift "
+                f"labels: {labels is not None}): forward, d qkv, d bias "
+                f"errors {errs}")
+        key = tuple(qkv.shape)
+        worst[key] = [max(a, b) for a, b in zip(worst.get(key, errs), errs)]
+    print(f"{name} train step: B1 at the step's {len(calls)} calls against "
+          f"the plain version (forward over max(1, largest output), tolerance "
+          f"{ATTN_TOL:g}; d qkv, d bias over the largest plain gradient, "
+          f"{ATTN_GRAD_TOL:g}), worst by qkv shape: " + "; ".join(
+              f"{k} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
+              for k, e in sorted(worst.items(), key=lambda kv: -kv[0][1])))
     bwd_ms = sum(graph_ms(lambda a=a: backward(*a), 3) for a in calls)
     print(f"{name} train step: B1's backward (PyTorch ops) {bwd_ms:.3f} ms "
           f"of device time in {len(calls)} calls (graph replays at the "

@@ -19,9 +19,10 @@ the eval path does and saves qkv, bias and labels; the backward
 recomputes the softmax from them in PyTorch ops and returns d qkv and
 d bias by the closed form (`window_attention_backward`). The JAX package
 has no backward kernel for `_attn_kernel` either (it trains through its
-plain core), so B1 has none. Under `torch.no_grad()`, inference mode and
-the codec's CUDA-graph captures nothing needs a gradient, and the
-wrapper launches B1 directly, as before.
+plain core), so B1 has none. Every CUDA call goes through the Function:
+under `torch.no_grad()`, inference mode and the codec's CUDA-graph
+captures it records no graph and launches B1 once, as a direct call
+would.
 """
 
 import ctypes
@@ -139,17 +140,14 @@ def window_attention(qkv, bias, labels, window: int, scale: float):
     """Attention over ws x ws windows of the (B, H, W, 3C) f32 qkv map ->
     (B, H, W, C). bias: (nh, N, N) f32 gathered relative-position bias;
     labels: (nW, N) int32 shift-region labels, or None for unshifted
-    windows. On CUDA tensors this launches kernel B1, through
-    `WindowAttentionFunction` when qkv or bias needs a gradient; on CPU
-    tensors it runs `window_attention_plain`, which autograd
-    differentiates."""
+    windows. On CUDA tensors this launches kernel B1 through
+    `WindowAttentionFunction`; on CPU tensors it runs
+    `window_attention_plain`, which autograd differentiates."""
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, bias, labels, window, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention runs on cuda or cpu, not {qkv.device}")
-    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
-        return WindowAttentionFunction.apply(qkv, bias, labels, window, scale)
-    return _launch(qkv, bias, labels, window, scale)
+    return WindowAttentionFunction.apply(qkv, bias, labels, window, scale)
 
 
 def _launch(qkv, bias, labels, window: int, scale: float):

@@ -193,5 +193,5 @@ class BasicLayer(nn.Module):
 
     def forward(self, x, sampler=None):
         for block in self.blocks:
-            x = block(x) if sampler is None else block(x, sampler)
+            x = block(x, sampler)
         return x if self.downsample is None else self.downsample(x)

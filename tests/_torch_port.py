@@ -1,19 +1,18 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
 a small JAX model and the port's at the same weights (WACNN or STF)."""
 
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch import nn
 
 from stf_tpu.models import WACNN as JaxWACNN
 from stf_tpu.models import SymmetricalTransFormer as JaxSTF
 from stf_tpu.zoo.torch_import import import_state_dict
 from stf_tpu_torch.models import WACNN, SymmetricalTransFormer, init_weights
+
+from _torch_scale import he_scale
 
 # the size tests/test_lane_codec.py uses
 SMALL = dict(N=32, M=40, num_slices=4, max_support_slices=2)
@@ -21,38 +20,21 @@ SMALL = dict(N=32, M=40, num_slices=4, max_support_slices=2)
 # stages of 16, 32, 64 and 128 channels, y of 128 in 4 slices of 32
 STF_SMALL = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
                  num_slices=4)
-_MODELS = {"cnn": (WACNN, JaxWACNN, SMALL, ("g_s",)),
-           "stf": (SymmetricalTransFormer, JaxSTF, STF_SMALL,
-                   ("syn_layers", "end_conv"))}
+_MODELS = {"cnn": (WACNN, JaxWACNN, SMALL),
+           "stf": (SymmetricalTransFormer, JaxSTF, STF_SMALL)}
 
 
 def pair_from_port(seed: int = 0, name: str = "cnn"):
     """(flax model, params, port model): the port's small `name` model
     ("cnn" or "stf") with weights drawn by `init_weights` from a seeded
-    generator, and the same weights as flax params. The flax template
-    comes from `jax.eval_shape`, which skips the ~70 s CPU cost of running
-    flax's init.
-
-    `init_weights` draws convs and linears at torch's default scale, where
-    y barely depends on the image (x_hat is the same for every image and
-    every y likelihood ~1), so a comparison would miss a fault in g_a or
-    the hyper path. They are scaled to He-normal size (std
-    sqrt(2/fan_in), flax's conv init), and the synthesis's to half that,
-    which keeps x_hat within a few units, as the fixture built from
-    flax's init did. LayerNorm weights and biases are drawn from
-    1 + U(-0.5, 0.5) and U(-0.5, 0.5), so a norm left out or swapped for
-    another changes the output."""
-    port_cls, jax_cls, cfg, synthesis = _MODELS[name]
+    generator and scaled by `_torch_scale.he_scale` (He-normal size, the
+    synthesis at half, LayerNorms moved off 1 and 0), and the same
+    weights as flax params. The flax template comes from
+    `jax.eval_shape`, which skips the ~70 s CPU cost of running flax's
+    init."""
+    port_cls, jax_cls, cfg = _MODELS[name]
     gen = torch.Generator().manual_seed(seed)
-    port = init_weights(port_cls(**cfg), gen)
-    with torch.no_grad():
-        for key, m in port.named_modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-                m.weight.mul_(math.sqrt(6) / (2 if key.startswith(synthesis)
-                                              else 1))
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.add_(torch.rand(m.weight.shape, generator=gen) - 0.5)
-                m.bias.add_(torch.rand(m.bias.shape, generator=gen) - 0.5)
+    port = he_scale(init_weights(port_cls(**cfg), gen), gen, name)
     model = jax_cls(**cfg)
     shapes = jax.eval_shape(lambda: model.init(
         {"params": jax.random.key(0), "noise": jax.random.key(1)},

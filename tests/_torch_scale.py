@@ -1,0 +1,34 @@
+"""He-normal weights for the port's model tests. Imports no JAX, so the
+card tests (`tests/test_torch_cuda.py`) use it as the CPU tests do."""
+
+import math
+
+import torch
+from torch import nn
+
+# the synthesis transform of each model, scaled to half the others
+SYNTHESIS = {"cnn": ("g_s",), "stf": ("syn_layers", "end_conv")}
+
+
+def he_scale(port, gen, name: str):
+    """Scale the convs and linears of the port's `name` model ("cnn" or
+    "stf"), drawn by `init_weights`, in place to He-normal size (std
+    sqrt(2/fan_in), flax's conv init), and the synthesis's to half that;
+    draw LayerNorm weights and biases from 1 + U(-0.5, 0.5) and
+    U(-0.5, 0.5) with `gen`. Returns the model.
+
+    At `init_weights`' own scale y barely depends on the image (x_hat is
+    the same for every image and every y likelihood ~1), so a comparison
+    would miss a fault in g_a or the hyper path; the half-size synthesis
+    keeps x_hat within a few units, and the drawn norms make a norm left
+    out or swapped for another change the output."""
+    synthesis = SYNTHESIS[name]
+    with torch.no_grad():
+        for key, m in port.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                m.weight.mul_(math.sqrt(6) / (2 if key.startswith(synthesis)
+                                              else 1))
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.add_(torch.rand(m.weight.shape, generator=gen) - 0.5)
+                m.bias.add_(torch.rand(m.bias.shape, generator=gen) - 0.5)
+    return port

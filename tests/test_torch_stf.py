@@ -106,8 +106,9 @@ def _block_forward(roll=True, padded_labels=True):
     """SwinTransformerBlock.forward, written out again with two switches:
     roll=False drops the cyclic shift of a shifted block (its labels
     stay), padded_labels=False cuts its shift regions at the unpadded
-    edge. With both switches on it is the port's forward."""
-    def forward(self, x):
+    edge. With both switches on it is the port's eval forward (DropPath
+    is the identity there, and `sampler` unused)."""
+    def forward(self, x, sampler=None):
         _, H, W, _ = x.shape
         ws, ss = self.window_size, self.shift_size
         shortcut = x
