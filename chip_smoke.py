@@ -17,7 +17,12 @@ Phases (any failure exits non-zero; nothing is caught):
      closed-form backward) d qkv and d bias within ATTN_GRAD_TOL of the
      plain version's autograd gradients at each geometry; with the
      bias x30, no farther than the f32 plain version from an f64 one, at
-     the first geometry of each of the three instances;
+     the first geometry of each of the three instances; then B1's bf16
+     instances at the bench path's shapes (`phase_attention_bf16`: WACNN's
+     two g_a geometries at batch 24, STF's four analysis stages at batch
+     8) against the bf16 plain version, within one bf16 ulp, for both
+     designs of the products (bf16 mma.sync, the codec's, and TF32 on
+     the converted values), each timed beside the plain version and SDPA;
   4. kernel B2 (lane-rANS decode) against its plain version and the
      encoded symbols, on seeded streams with 1% escapes at the main path's
      98,304 symbols a slice (banks bucketed as the codec buckets them) and
@@ -52,7 +57,17 @@ Phases (any failure exits non-zero; nothing is caught):
      walk (25 packed, 13 transpose). Each path's launch counts are set to
      0 just before it and read just after; B1's STF row takes its
      launches from the STF path, every other row from WACNN's;
-  9. the trainer, for the full-width WACNN and then STF (`phase_train`):
+  9. the codec as bench.py runs it (`phase_codec_bf16`), for the
+     full-width WACNN and then STF: smooth_batch(24, 512, 768, seed=999)
+     as uint8, cnn in bf16 at pipeline 2 on the full tier, stf in bf16 at
+     pipeline 1 on the split tier with analysis and synthesis in chunks
+     of 3: the tier's first call and a replay, the fused and per-slice
+     decompress, the host coder (packed drain); symbols round trip, the
+     three x_hat bit-equal, the tier's stream a per-slice codec's from
+     byte 1, no demotion, each step's launches the path's (B1 in bf16 in
+     the analysis, in f32 in the synthesis); warm medians, peak memory,
+     device busy, and the PSNR against the f32 codec at the same weights;
+ 10. the trainer, for the full-width WACNN and then STF (`phase_train`):
      30 steps of `make_train_step` on smooth_batch(8, 256, 256, seed=step)
      at bench.py's prelude lambda (0.013, 0.008); every loss finite, B1
      launched by each step exactly as its forward launches it (4 and 24;
@@ -97,6 +112,7 @@ SEED = 0
 BATCH, HEIGHT, WIDTH = 2, 512, 768
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 ATTN_TOL = 1e-5
 # (model, feature map, channels, window, heads) of every attention geometry
 # at a 512x768 input: WACNN's g_a/g_s blocks, and STF's four Swin stages
@@ -121,6 +137,29 @@ ATTN_GRAD_TOL = 1e-5
 # TRAIN_WARM are timed
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SIZE, TRAIN_WARM = 30, 8, 256, 5
 TRAIN_LMBDA = {"cnn": 0.013, "stf": 0.008}
+# bench.py's traffic and codec configuration (bench.py:281-304): 24
+# Kodak-size images from smooth_batch(seed=999); cnn in bf16 at pipeline 2
+# on the full fused tier, stf in bf16 at pipeline 1 on the split tier with
+# analysis and synthesis in chunks of 3
+BENCH_BATCH, BENCH_SEED = 24, 999
+BENCH_CODEC = {
+    "cnn": dict(pipeline=2, fused_encode=True),
+    "stf": dict(pipeline=1, fused_encode="split", analyze_chunks=3,
+                synth_chunks=3),
+}
+# (model, feature map, channels, window, heads, batch) of B1's bf16 calls
+# on that path: WACNN's two g_a blocks at batch 24, STF's four analysis
+# stages at its chunk's batch 8; the first of each (window, head width) is
+# that instance's kernels row
+ATTN_BF16_GEOMS = (
+    ("cnn", (128, 192), 192, 8, 8, 24),
+    ("cnn", (32, 48), 320, 4, 8, 24),
+    ("stf", (256, 384), 48, 4, 3, 8),
+    ("stf", (128, 192), 96, 4, 6, 8),
+    ("stf", (64, 96), 192, 4, 12, 8),
+    ("stf", (32, 48), 384, 4, 24, 8),
+)
+WARM_CALLS = 3  # warm calls a median of the batch-24 phase takes
 
 
 def smooth_batch(n, h, w, seed):
@@ -238,12 +277,112 @@ def is_range(evt):
     return bool(getattr(evt, "is_user_annotation", False))
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
+    operations over `ops_per_s` (the f32 rate by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp_errors(got, want):
+    """|got - want| in bf16 ulps of want, the ulp taken at no less than
+    2^-12 of want's largest magnitude (bf16's ulp over [2^e, 2^(e+1)) is
+    2^(e-7)): below that an attention output is the cancellation of much
+    larger P * v terms, and the order of an f32 sum alone moves it by
+    more than its own ulp."""
+    import torch
+
+    g, w = got.float(), want.float()
+    mag = torch.clamp(w.abs(), min=w.abs().max().item() * 2.0 ** -12)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_attention_bf16(dev):
+    """B1's bf16 instances at the bench path's shapes: each against the
+    bf16 plain version (at most one bf16 ulp an element, `bf16_ulp_errors`;
+    two launches bit-equal), for the codec's design (bf16 mma.sync) and
+    the other (TF32 on the converted values); device times of both over
+    graph replays, the plain version's and SDPA's with the same mask on the
+    same bf16 inputs; the bound at 2 bytes an element of qkv, bias and
+    out, 4 a label, and B1's products at the bf16 tensor rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_tpu_torch.layers import attention_core as ac
+    from stf_tpu_torch.layers import shifted_window_region_labels
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    chosen, other = "bf16_mma", "tf32"
+    for model, (h, w), C, ws, nh, batch in ATTN_BF16_GEOMS:
+        N, hd = ws * ws, C // nh
+        scale = hd ** -0.5
+        qkv = torch.randn(batch, h, w, 3 * C, device=dev,
+                          generator=gen).to(torch.bfloat16)
+        bias = torch.randn(nh, N, N, device=dev, generator=gen).to(torch.bfloat16)
+        labels = torch.from_numpy(
+            shifted_window_region_labels(h, w, ws, ws // 2)
+        ).to(dev)
+        plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
+        name = ac.launch_key(ws, hd, torch.bfloat16)
+        errs, ms = {}, {}
+        for design in (chosen, other):
+            out = ac._launch(qkv, bias, labels, ws, scale, design)
+            again = ac._launch(qkv, bias, labels, ws, scale, design)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"B1 {name} {design} {model} {h}x{w}: "
+                                     "two launches differ")
+            ulps = bf16_ulp_errors(out, plain)
+            errs[design] = (ulps.max().item(), int((out != plain).sum()),
+                            (out.float() - plain.float()).abs().max().item())
+            if not errs[design][0] <= 1.0:
+                raise AssertionError(f"B1 {name} {design} {model} {h}x{w}: "
+                                     f"{errs[design][0]:.3g} bf16 ulps from "
+                                     "the plain version")
+            ms[design] = graph_ms(
+                lambda d=design: ac._launch(qkv, bias, labels, ws, scale, d), 20)
+        if not torch.equal(ac.window_attention(qkv, bias, labels, ws, scale),
+                           ac._launch(qkv, bias, labels, ws, scale, chosen)):
+            raise AssertionError(f"B1 {name}: the wrapper did not launch the "
+                                 f"{chosen} design")
+        q, k, v = ac.partition_qkv(qkv, ws, nh)
+        nW = labels.shape[0]
+        mask = (bias[None, None].float()
+                + ac.shift_penalty(labels)[None, :, None]).to(torch.bfloat16)
+        mask = mask.expand(batch, nW, nh, N, N).reshape(-1, nh, N, N)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, scale=scale
+        )
+        lib_err = (ac.unpartition(sdpa(), batch, h, w, ws).float()
+                   - plain.float()).abs().max().item()
+        plain_ms = graph_ms(
+            lambda: ac.window_attention_plain(qkv, bias, labels, ws, scale), 3)
+        lib_ms = graph_ms(sdpa, 10)
+        nbytes = (qkv.numel() + plain.numel() + bias.numel()) * 2 + labels.numel() * 4
+        ops = 4 * N * N * hd * batch * nW * nh
+        bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        print(f"B1 {name} ({model}, batch {batch}): qkv {tuple(qkv.shape)} "
+              + "; ".join(f"{d}: {e[0]:.3g} ulps at most, {e[1]} of "
+                          f"{plain.numel()} elements differ, max abs {e[2]:.3g}, "
+                          f"{ms[d]:.4f} ms" for d, e in errs.items())
+              + f"; deterministic; plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+              f"(max abs {lib_err:.3g}) bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{chosen} at {100 * bound_ms / ms[chosen]:.1f}% of bound, "
+              f"{lib_ms / ms[chosen]:.2f}x sdpa, {ms[other] / ms[chosen]:.2f}x "
+              f"{other}")
+        if all(r["name"] != name for r in rows):
+            rows.append(dict(
+                name=name, route="cuda",
+                source="stf_tpu_torch/csrc/window_attention.cu",
+                replaces="stf_tpu/layers/pallas_attention.py:49",
+                launches=None, max_abs_err=errs[chosen][2], ms=ms[chosen],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, design=chosen, other_design=other,
+                other_design_ms=ms[other], path=f"{model}_bf16",
+            ))
+    return rows
 
 
 def phase_attention(dev):
@@ -1008,6 +1147,195 @@ def phase_stf_seed_fallback(dev):
           "undemoted; it decodes fused to the same symbols")
 
 
+def phase_codec_bf16(dev, smi, name):
+    """The codec as bench.py runs it (`BENCH_CODEC`): the full-width model
+    `name` in bf16 on smooth_batch(24, 512, 768, seed=999) through its
+    fused encode tier (first call: capture and self-check; then a replay),
+    the fused and the per-slice decompress, and the host coder (packed
+    drain) at the same options. Decoded symbols must equal the encoded
+    ones, the fused and per-slice x_hat and the host coder's must be
+    bit-equal, the tier's stream must be a per-slice lane codec's from
+    byte 1 on, no tier may be demoted and no hash may fall back (warnings
+    are errors); each step's kernel launches must be the path's. Prints
+    warm medians of compress and decompress a image, peak memory, the
+    device-busy share of a warm compress and decompress, B1's launches a
+    call by instance (bf16 in the analysis, f32 in the synthesis), and the
+    PSNR of the bf16 x_hat against the f32 codec's at the same weights.
+    Returns the path's kernel launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.utils import psnr
+
+    x = (smooth_batch(BENCH_BATCH, HEIGHT, WIDTH, BENCH_SEED) * 255).astype(
+        np.uint8)  # as bench.py:304 makes it
+    model = smoke_model(name)
+    opts = BENCH_CODEC[name]
+    bf16 = dict(device=dev, dtype=torch.bfloat16, **opts)
+    tier = Codec(model, coder="lane", **bf16)
+    host = Codec(model, coder="host", **{**bf16, "fused_encode": False})
+    per_slice = Codec(model, coder="lane", **{**bf16, "fused_encode": False})
+    counts = _native.launch_counts
+    S = model.num_slices
+    P = len(tier._sub_batches(BENCH_BATCH))
+    chunks = opts.get("analyze_chunks", 1)
+    # B1 launches in one analysis (bf16) and one synthesis (f32) of the
+    # batch, each run in `chunks` sub-batches
+    A = B1_PER_TRANSFORM[name] * chunks
+    pins = 1 + P * (3 * S + 1)  # B4 launches in a fused walk
+    mode = "full" if opts["fused_encode"] is True else "split"
+
+    def strict(fn, *a):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            return fn(*a)
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walk_decompress(enc):
+        tier.fused = False
+        try:
+            return tier.decompress(enc["strings"], enc["shape"])
+        finally:
+            tier.fused = True
+
+    steps, secs = {}, {}
+
+    def run(step, fn, *a):
+        snap = dict(counts)
+        result, secs[step] = timed(strict, fn, *a)
+        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
+                       if v - snap.get(k, 0)}
+        return result
+
+    first_step, replay_step = (f"{mode}-tier compress, first", f"{mode}-tier "
+                               "compress (replay)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts.clear()  # this path starts here
+    first = run(first_step, tier.compress, x)
+    enc = run(replay_step, tier.compress, x)
+    dec = run("fused decompress (replay)", tier.decompress, enc["strings"],
+              enc["shape"])
+    wdec = run("per-slice decompress", walk_decompress, enc)
+    henc = run("host compress", host.compress, x)
+    hdec = run("host decompress", host.decompress, henc["strings"],
+               henc["shape"])
+    launches = dict(counts)  # this path ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    for step, d in steps.items():
+        print(f"{name} bf16: launches in {step}: {d}")
+
+    if tier._fused_mode != mode or not tier.fused_encode:
+        raise AssertionError(f"{name} bf16: {mode} tier demoted to "
+                             f"{tier._fused_mode} (fused_encode "
+                             f"{tier.fused_encode})")
+    if first["strings"] != enc["strings"]:
+        raise AssertionError(f"{name} bf16: the replay wrote another stream")
+    want = strict(per_slice.compress, x)
+    y, y_want = enc["strings"][0][0], want["strings"][0][0]
+    if y[0] != y_want[0] | 1 or y[1:] != y_want[1:] or \
+            enc["strings"][1] != want["strings"][1]:
+        raise AssertionError(f"{name} bf16: the tier's stream is not the "
+                             "per-slice stream with the fused flag")
+    for what, d in (("fused", dec), ("per-slice", wdec), ("host", hdec)):
+        e = henc if what == "host" else enc
+        if not all(torch.equal(a, b) for a, b in zip(e["symbols"], d["symbols"])):
+            raise AssertionError(f"{name} bf16 {what}: decoded symbols differ")
+    if not all(torch.equal(a, b) for a, b in zip(enc["symbols"], henc["symbols"])):
+        raise AssertionError(f"{name} bf16: lane and host walks quantized "
+                             "different symbols")
+    for what, d in (("per-slice", wdec), ("host", hdec)):
+        if not torch.equal(d["x_hat"], dec["x_hat"]):
+            raise AssertionError(f"{name} bf16 {what} x_hat is not bit-equal "
+                                 "to the fused decompress's")
+    if not host._pack_drain:
+        raise AssertionError(f"{name} bf16: the host coder's drain is not packed")
+
+    def b1(d, half):
+        return sum(v for k, v in d.items() if k.startswith("window_attention")
+                   and k.endswith("_bf16") == half)
+
+    # (step, B1 bf16, B1 f32, B2, B3, B4). A tier's first compress runs its
+    # graph's work eagerly and replays it, and so does its self-check's
+    # first fused decompress; the split tier's analysis runs eagerly once
+    first_b1 = A if mode == "split" else 2 * A
+    expect = (
+        (first_step, first_b1, 2 * A, 2 * S * P, 2 * S * P, 2 * pins),
+        (replay_step, A, 0, 0, S * P, 0),
+        ("fused decompress (replay)", 0, A, S * P, 0, pins),
+        ("per-slice decompress", 0, A, S * P, 0, 0),
+        ("host compress", A, 0, 0, 0, 0),
+        ("host decompress", 0, A, 0, 0, 0),
+    )
+    for step, *want_counts in expect:
+        d = steps[step]
+        got = [b1(d, True), b1(d, False), d.get("lane_decode", 0),
+               d.get("lane_encode", 0), d.get("layout_pin", 0)]
+        if got != want_counts:
+            raise AssertionError(f"{name} bf16 {step}: B1 bf16/B1 f32/B2/B3/B4 "
+                                 f"launches {got}, want {want_counts}")
+    x_hat = dec["x_hat"]
+    if x_hat.shape != (BENCH_BATCH, HEIGHT, WIDTH, 3) or not torch.isfinite(x_hat).all():
+        raise AssertionError(f"{name} bf16: x_hat {tuple(x_hat.shape)} or "
+                             "values bad")
+    print(f"{name} bf16 first calls: "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    for what, step in (("compress", replay_step),
+                       ("decompress", "fused decompress (replay)")):
+        b1_calls = {k: v for k, v in steps[step].items()
+                    if k.startswith("window_attention")}
+        print(f"{name} bf16: B1 launches a {what} by instance {b1_calls} "
+              f"(bf16 {b1(b1_calls, True)}, f32 {b1(b1_calls, False)})")
+
+    warm = {}
+    calls = (
+        (f"{mode}-tier compress", lambda: strict(tier.compress, x)),
+        ("fused decompress",
+         lambda: strict(tier.decompress, enc["strings"], enc["shape"])),
+    )
+    for what, fn in calls:
+        warm[what] = float(np.median([timed(fn)[1]
+                                      for _ in range(WARM_CALLS)]))
+    shares = []
+    for what, fn in calls:
+        wall, busy, _ = profile_call(fn, what)
+        shares.append(f"{what} {wall * 1e3:.1f} ms wall, device busy "
+                      f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%)")
+    pixels = BENCH_BATCH * HEIGHT * WIDTH
+
+    def stream_bits(e):
+        return 8 * (sum(map(len, e["strings"][0])) + sum(map(len, e["strings"][1])))
+
+    print(f"{name} bf16 bench path ({BENCH_BATCH}x{HEIGHT}x{WIDTH}, {opts}; "
+          f"{smi}): warm per call, median of {WARM_CALLS}: "
+          + "; ".join(f"{k} {v * 1e3:.1f} ms ({v * 1e3 / BENCH_BATCH:.2f} ms "
+                      "an image)" for k, v in warm.items())
+          + f"; peak memory {peak / 2 ** 30:.2f} GiB; profiled: "
+          + "; ".join(shares) + f"; {stream_bits(enc) / pixels:.4f} bpp")
+
+    # the f32 codec at the same weights and options
+    f32 = Codec(model, coder="lane", device=dev, **opts)
+    f32_enc = strict(f32.compress, x)
+    f32_hat = strict(f32.decompress, f32_enc["strings"], f32_enc["shape"])["x_hat"]
+    xf = torch.from_numpy(x).to(dev).float() / 255.0
+    p16, p32 = psnr(x_hat, xf).item(), psnr(f32_hat, xf).item()
+    print(f"{name} bf16 against f32 (seed weights, not an operating point): "
+          f"PSNR to the image bf16 {p16:.4f} dB, f32 {p32:.4f} dB (gap "
+          f"{p16 - p32:+.4f} dB); bf16 x_hat against the f32 x_hat "
+          f"{psnr(x_hat, f32_hat).item():.2f} dB; bpp bf16 "
+          f"{stream_bits(enc) / pixels:.4f}, f32 {stream_bits(f32_enc) / pixels:.4f}")
+    return launches
+
+
 def kernel_group(key):
     """A kernel's kind by its name: B1, convolution (cuDNN's implicit-GEMM,
     FFT (with its complex GEMMs and transforms), direct and Winograd
@@ -1316,14 +1644,18 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
-    rows = (phase_attention(dev) + phase_lane_decode(dev, sm_mhz)
-            + phase_lane_encode(dev, sm_mhz) + phase_layout_pin(dev))
+    rows = (phase_attention(dev) + phase_attention_bf16(dev)
+            + phase_lane_decode(dev, sm_mhz) + phase_lane_encode(dev, sm_mhz)
+            + phase_layout_pin(dev))
     launches = {name: phase_codec(dev, smi, name) for name in ("cnn", "stf")}
     phase_stf_seed_fallback(dev)
     for model_name in ("cnn", "stf"):
+        launches[f"{model_name}_bf16"] = phase_codec_bf16(dev, smi, model_name)
+    for model_name in ("cnn", "stf"):
         phase_train(dev, smi, model_name)
     for row in rows:
-        # B1's rows count on their model's path, B2-B4's on WACNN's
+        # B1's rows count on their model's path (the bf16 instances on the
+        # bench path's), B2-B4's on WACNN's
         path = row.pop("path", "cnn")
         row["launches"] = launches[path].get(row["name"], 0)
         if not row["launches"]:

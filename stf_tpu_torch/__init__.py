@@ -12,7 +12,7 @@ counterpart is easy to find:
                             Swin blocks
     stf_tpu_torch.models    WACNN, STF, the channel-AR base and the Codec
     stf_tpu_torch.zoo       registry and the JAX-params -> state_dict bridge
-    stf_tpu_torch.utils     metrics (PSNR, SSIM, MS-SSIM), the f32 policy
+    stf_tpu_torch.utils     metrics (PSNR, SSIM, MS-SSIM), the numerical policy
     stf_tpu_torch.datasets  image-folder loader and device prefetch
     stf_tpu_torch.training  RD losses, dual-Adam train state and steps,
                             checkpoints, the trainer CLI

@@ -84,6 +84,7 @@
 // a run-time head-group size spent as many instructions on the staging
 // loop's divisions as on S.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -328,6 +329,346 @@ int launch(const float* qkv, const float* bias, const int32_t* labels,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 instances: the same core on bf16 qkv, bias and output, as the
+// JAX codec runs its analysis transforms in bf16 (`Codec(dtype=bf16)`).
+// What they compute is what the JAX core computes in its inputs' dtype
+// (stf_tpu/layers/win_attention.py:183-202, pallas_attention.py:49-67):
+//   qs = bf16(q * bf16(scale))        (the product rounded to bf16; the
+//                                      scale, a weak Python float there,
+//                                      is rounded to bf16 first: the
+//                                      wrapper passes it rounded)
+//   s  = qs . k^T                      (bf16 products, exact in f32,
+//                                      summed in f32)
+//   l  = (s + bias) + penalty          (f32; bias a bf16 parameter)
+//   P  = softmax(l)                    (f32)
+//   out = bf16(P . v)                  (P stays f32: v is promoted)
+// The kernel reads bf16 qkv and writes bf16 out itself: no cast pass
+// over device memory. Two designs for the products, both kept so that
+// one call on the card times them side by side (PERF.md section 6):
+//   * BMMA: q.k^T on bf16 mma.sync m16n8k16 (m16n8k8 for the last 8
+//     of hd 24 and 40), exact products; P.v with P split into three
+//     bf16 parts (high, middle, low), three bf16 mmas that keep 24 bits
+//     of each P. Two parts (16 bits) measured 1.5 bf16 ulps from the
+//     plain version at 8x8 / hd 24 on an H100: a P error of 2^-17 is
+//     more than an ulp of an output that cancels. S's accumulator tiles
+//     are the A fragments of P.v as they stand (two n-tiles make one
+//     16-key k-tile), so P never touches shared memory;
+//   * TF32: the bf16 values converted in registers feed the f32
+//     kernel's mma.sync m16n8k8 TF32 tiles. A bf16 value is a TF32 value,
+//     so q.k^T takes one TF32 mma per 8 x 8 x 8 tile and P.v two (P
+//     split into TF32 big + small): about 1.4x the mma operations of
+//     BMMA.
+// Shared memory holds q, k and v as staged (bf16, 16-byte cp.async),
+// rows of QP bf16: QP / 2 words a row is 4 x an odd number, so the
+// fragment loads (8 rows x 4 words a warp) hit 32 distinct banks. The
+// bytes bound it as in f32 (2 bytes an element instead of 4); the
+// softmax and staging latency are the rest, as there.
+
+template <int WS, int HD>
+struct Bf16Geometry {
+  static constexpr int N = WS * WS;
+  static constexpr int TEAM = 2 * N;  // N / 16 warps
+  static constexpr int QP = ((HD / 8) % 2 == 1) ? HD : HD + 8;
+  static constexpr int ELEMS = 3 * N * QP;
+  static_assert(N % 16 == 0 && HD % 8 == 0, "m16n8k8 tiles");
+};
+
+__device__ __forceinline__ float bf16_bits_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_bits_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// bf16(x * scale) as an f32 value
+__device__ __forceinline__ float scaled_bf16(float x, float scale) {
+  return __bfloat162float(__float2bfloat16_rn(x * scale));
+}
+
+// d += a . b on one m16n8k16 bf16 tile, f32 accumulation.
+__device__ __forceinline__ void mma_bf16_k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on one m16n8k8 bf16 tile, f32 accumulation.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// One block per (window, head), as the f32 kernel; lane (g, t) holds rows
+// r0 = 16 warp + g and r0 + 8 of S and of the output.
+template <int WS, int HD, int MINB, bool BMMA>
+__global__ void __launch_bounds__(Bf16Geometry<WS, HD>::TEAM, MINB)
+window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const __nv_bfloat16* __restrict__ bias,
+                             const int32_t* __restrict__ labels,
+                             __nv_bfloat16* __restrict__ out, int H, int W,
+                             int C, int nh, float scale) {
+  using G = Bf16Geometry<WS, HD>;
+  constexpr int N = G::N, TEAM = G::TEAM, QP = G::QP, C8 = HD / 8;
+  constexpr int NT = N / 8, DT = HD / 8;
+  extern __shared__ __align__(16) __nv_bfloat16 bsmem[];
+  __nv_bfloat16* qs = bsmem;
+  __nv_bfloat16* ks = qs + N * QP;
+  __nv_bfloat16* vs = ks + N * QP;
+
+  const int h = blockIdx.x % nh;
+  const int bw = blockIdx.x / nh;
+  const int Q = W / WS;
+  const int nW = (H / WS) * Q;
+  const int win = bw % nW, b = bw / nW;
+  const int wp = win / Q, wq = win - wp * Q;
+  const int64_t C3 = 3 * (int64_t)C;
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* base = qkv + ((int64_t)b * H + wp * WS) * W * C3
+                              + (int64_t)wq * WS * C3 + h * HD;
+  auto pixel = [&](int n) { return (int64_t)(n / WS) * W + n % WS; };
+
+  // q and k in one cp.async group, v in a second: hd / 8 16-byte chunks
+  // a token
+#pragma unroll
+  for (int which = 0; which < 3; ++which) {
+    for (int e = tid; e < N * C8; e += TEAM) {
+      const int n = e / C8, c = e - n * C8;
+      cp_async16(bsmem + which * N * QP + n * QP + 8 * c,
+                 base + pixel(n) * C3 + which * C + 8 * c);
+    }
+    if (which != 0) asm volatile("cp.async.commit_group;\n" ::);
+  }
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (tid >> 5) * 16 + g;
+
+  float s[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+  if constexpr (BMMA) {
+    // A: q rows r0, r0 + 8 at columns 2t, 2t + 1 (+8), scaled and rounded
+    // to bf16 in registers; B: k row 8n + g at the same columns
+    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qs);
+    const uint32_t* k32 = reinterpret_cast<const uint32_t*>(ks);
+    auto qpair = [&](int row, int col) {
+      const uint32_t w = q32[(row * QP + col) / 2];
+      return pack_bf16x2(bf16_bits_lo(w) * scale, bf16_bits_hi(w) * scale);
+    };
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int c0 = 16 * kk + 2 * t;
+      const uint32_t a[4] = {qpair(r0, c0), qpair(r0 + 8, c0),
+                             qpair(r0, c0 + 8), qpair(r0 + 8, c0 + 8)};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int kr = (8 * n + g) * QP;
+        mma_bf16_k16(s[n], a, k32[(kr + c0) / 2], k32[(kr + c0 + 8) / 2]);
+      }
+    }
+    if constexpr (HD % 16 != 0) {
+      const int c0 = HD - 8 + 2 * t;
+      const uint32_t a0 = qpair(r0, c0), a1 = qpair(r0 + 8, c0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma_bf16_k8(s[n], a0, a1, k32[((8 * n + g) * QP + c0) / 2]);
+    }
+  } else {
+    // the f32 kernel's TF32 tiles on the converted values: a bf16 value
+    // is exact in TF32, so one mma a tile
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const __nv_bfloat16* q0 = qs + r0 * QP + 8 * kk + t;
+      const uint32_t a[4] = {
+          __float_as_uint(scaled_bf16(bf16_at(q0), scale)),
+          __float_as_uint(scaled_bf16(bf16_at(q0 + 8 * QP), scale)),
+          __float_as_uint(scaled_bf16(bf16_at(q0 + 4), scale)),
+          __float_as_uint(scaled_bf16(bf16_at(q0 + 8 * QP + 4), scale))};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const __nv_bfloat16* k0 = ks + (8 * n + g) * QP + 8 * kk + t;
+        mma_tf32(s[n], a, __float_as_uint(bf16_at(k0)),
+                 __float_as_uint(bf16_at(k0 + 4)));
+      }
+    }
+  }
+
+  // logits (s + bias) + penalty in f32, in JAX's order, then the row
+  // softmax across the 4 lanes of a row
+  const __nv_bfloat16* brow = bias + ((int64_t)h * N + r0) * N + 2 * t;
+  const int32_t* lab = labels != nullptr ? labels + (int64_t)win * N : nullptr;
+  const int li0 = lab != nullptr ? __ldg(lab + r0) : 0;
+  const int li1 = lab != nullptr ? __ldg(lab + r0 + 8) : 0;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 b0 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(brow + 8 * n));
+    const float2 b1 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(brow + 8 * N + 8 * n));
+    const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
+    const int lj0 = lab != nullptr ? __ldg(lab + 8 * n + 2 * t) : 0;
+    const int lj1 = lab != nullptr ? __ldg(lab + 8 * n + 2 * t + 1) : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = s[n][i] + bv[i];
+      if ((i & 1 ? lj1 : lj0) != (i < 2 ? li0 : li1)) v += -100.f;
+      s[n][i] = v;
+      if (i < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    s[n][0] = expf(s[n][0] - mx0);
+    s[n][1] = expf(s[n][1] - mx0);
+    s[n][2] = expf(s[n][2] - mx1);
+    s[n][3] = expf(s[n][3] - mx1);
+    sum0 += s[n][0] + s[n][1];
+    sum1 += s[n][2] + s[n][3];
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sum0 += __shfl_xor_sync(kFull, sum0, o);
+    sum1 += __shfl_xor_sync(kFull, sum1, o);
+  }
+  const float rinv0 = 1.f / sum0, rinv1 = 1.f / sum1;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    s[n][0] *= rinv0;
+    s[n][1] *= rinv0;
+    s[n][2] *= rinv1;
+    s[n][3] *= rinv1;
+  }
+
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[d][i] = 0.f;
+  const unsigned short* v16 = reinterpret_cast<const unsigned short*>(vs);
+  // v[key][channel 8d + g] as a bf16 pair of keys (key, key + 1), low
+  // half the first
+  auto vpair = [&](int key, int d) {
+    const int at = key * QP + 8 * d + g;
+    return (uint32_t)v16[at] | ((uint32_t)v16[at + QP] << 16);
+  };
+  if constexpr (BMMA) {
+    // k-tile j of P . v is S's n-tiles 2j (keys 2t, 2t + 1) and 2j + 1
+    // (keys 2t + 8, 2t + 9); P = hi + mid + lo, each bf16
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      uint32_t hi[4], mid[4], lo[4];
+      const float pa[4][2] = {{s[2 * j][0], s[2 * j][1]},
+                              {s[2 * j][2], s[2 * j][3]},
+                              {s[2 * j + 1][0], s[2 * j + 1][1]},
+                              {s[2 * j + 1][2], s[2 * j + 1][3]}};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        hi[r] = pack_bf16x2(pa[r][0], pa[r][1]);
+        const float r0 = pa[r][0] - bf16_bits_lo(hi[r]);
+        const float r1 = pa[r][1] - bf16_bits_hi(hi[r]);
+        mid[r] = pack_bf16x2(r0, r1);
+        lo[r] = pack_bf16x2(r0 - bf16_bits_lo(mid[r]),
+                            r1 - bf16_bits_hi(mid[r]));
+      }
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const uint32_t b0 = vpair(16 * j + 2 * t, d);
+        const uint32_t b1 = vpair(16 * j + 2 * t + 8, d);
+        mma_bf16_k16(o[d], lo, b0, b1);
+        mma_bf16_k16(o[d], mid, b0, b1);
+        mma_bf16_k16(o[d], hi, b0, b1);
+      }
+    }
+  } else {
+    // the f32 kernel's permuted-key P . v: fragment column t <-> key 2t,
+    // t + 4 <-> key 2t + 1 of tile n; P split into TF32 big + small, v
+    // exact in TF32
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t ab[4], as[4];
+      split_tf32(s[n][0], ab[0], as[0]);
+      split_tf32(s[n][2], ab[1], as[1]);
+      split_tf32(s[n][1], ab[2], as[2]);
+      split_tf32(s[n][3], ab[3], as[3]);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const uint32_t vp = vpair(8 * n + 2 * t, d);
+        const uint32_t vb0 = __float_as_uint(bf16_bits_lo(vp));
+        const uint32_t vb1 = __float_as_uint(bf16_bits_hi(vp));
+        mma_tf32(o[d], as, vb0, vb1);
+        mma_tf32(o[d], ab, vb0, vb1);
+      }
+    }
+  }
+
+  // rows r0 and r0 + 8, channels 8d + 2t + {0, 1}, as bf16 pairs
+  __nv_bfloat16* obase = out + ((int64_t)b * H + wp * WS) * W * C
+                         + (int64_t)wq * WS * C + h * HD + 2 * t;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    *reinterpret_cast<__nv_bfloat162*>(obase + pixel(r0) * C + 8 * d) =
+        __floats2bfloat162_rn(o[d][0], o[d][1]);
+    *reinterpret_cast<__nv_bfloat162*>(obase + pixel(r0 + 8) * C + 8 * d) =
+        __floats2bfloat162_rn(o[d][2], o[d][3]);
+  }
+}
+
+template <int WS, int HD, int MINB, bool BMMA>
+int launch_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* bias,
+                const int32_t* labels, __nv_bfloat16* out, int B, int H,
+                int W, int C, int nh, float scale, cudaStream_t stream) {
+  using G = Bf16Geometry<WS, HD>;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)G::ELEMS;
+  const int nW = (H / WS) * (W / WS);
+  window_attention_bf16_kernel<WS, HD, MINB, BMMA>
+      <<<B * nW * nh, G::TEAM, smem, stream>>>(qkv, bias, labels, out, H, W,
+                                               C, nh, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool BMMA>
+int launch_bf16_geometry(const __nv_bfloat16* q, const __nv_bfloat16* bs,
+                         const int32_t* lb, __nv_bfloat16* o, int B, int H,
+                         int W, int ws, int C, int nh, float scale,
+                         cudaStream_t st) {
+  const int n = ws * ws, hd = C / nh;
+  if (n == 64 && hd == 24)
+    return launch_bf16<8, 24, 6, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+  if (n == 16 && hd == 40)
+    return launch_bf16<4, 40, 8, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+  if (n == 16 && hd == 16)
+    return launch_bf16<4, 16, 32, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale,
+                                        st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,6 +705,32 @@ int stf_window_attention(const void* qkv, const void* bias,
     return launch<4, 40, 8>(q, bs, lb, o, B, H, W, C, nh, scale, st);
   if (n == 16 && hd == 16)
     return launch<4, 16, 32>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 instances, at the same geometries: qkv (B, H, W, 3C), bias
+// (nh, N, N) and out (B, H, W, C) bf16, labels as above; `scale` already
+// rounded to bf16 by the caller; design 0 = BMMA (bf16 mma.sync, the
+// codec's), 1 = TF32 on the converted values (kept for timing). qkv and out
+// 16-byte aligned, bias 4.
+int stf_window_attention_bf16(const void* qkv, const void* bias,
+                              const void* labels, void* out, int32_t B,
+                              int32_t H, int32_t W, int32_t ws, int32_t C,
+                              int32_t nh, float scale, int32_t design,
+                              void* stream) {
+  const __nv_bfloat16* q = (const __nv_bfloat16*)qkv;
+  const __nv_bfloat16* bs = (const __nv_bfloat16*)bias;
+  const int32_t* lb = (const int32_t*)labels;
+  __nv_bfloat16* o = (__nv_bfloat16*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((uintptr_t)qkv % 16 || (uintptr_t)out % 16 || (uintptr_t)bias % 4)
+    return (int)cudaErrorInvalidValue;
+  if (design == 0)
+    return launch_bf16_geometry<true>(q, bs, lb, o, B, H, W, ws, C, nh, scale,
+                                      st);
+  if (design == 1)
+    return launch_bf16_geometry<false>(q, bs, lb, o, B, H, W, ws, C, nh,
+                                       scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -35,8 +35,12 @@ class GDN(nn.Module):
             )
 
     def forward(self, x):
-        beta = self.beta_reparam(self.beta)
-        gamma = self.gamma_reparam(self.gamma)  # (C_out, C_in)
+        # the reparametrisation runs in the parameters' own dtype and its
+        # result meets x in x's: a bf16 codec's f32 synthesis keeps GDN's
+        # parameters in bf16, as the JAX codec's promotion does (flax
+        # computes beta_reparam(beta) in bf16, then promotes it)
+        beta = self.beta_reparam(self.beta).to(x.dtype)
+        gamma = self.gamma_reparam(self.gamma).to(x.dtype)  # (C_out, C_in)
         norm = F.conv2d(x * x, gamma[:, :, None, None], beta)
         norm = torch.sqrt(norm) if self.inverse else torch.rsqrt(norm)
         return x * norm

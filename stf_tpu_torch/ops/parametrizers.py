@@ -4,6 +4,12 @@ Port of `stf_tpu/ops/parametrizers.py`; the pedestal/offset math is the
 reference's exactly (it is load-bearing for training stability): parameters
 are stored as ``sqrt(v + pedestal)`` and decoded as
 ``lower_bound(x, sqrt(minimum + pedestal))**2 - pedestal``.
+
+On bf16 parameters every step rounds to bf16 where the JAX package's
+does (its Python-float bound and pedestal are weakly typed, so they meet
+a bf16 array as bf16): the bound and the pedestal are exact in bf16 or
+change no comparison, and the square and the subtraction round once each
+in both packages (tests/test_torch_bf16.py holds the results bit-equal).
 """
 
 import torch

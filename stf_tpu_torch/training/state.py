@@ -22,7 +22,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
-from ..utils.numerics import use_f32_policy
+from ..utils.numerics import use_numerical_policy
 from .losses import rate_distortion_loss
 from .sampler import Sampler
 
@@ -48,14 +48,14 @@ class TrainState:
     sampler the training forward draws from, and the step count.
 
     The sampler's generator lives on `device` and is seeded with `seed`.
-    Construction sets the f32 numerical policy (`use_f32_policy`) and
+    Construction sets the numerical policy (`use_numerical_policy`) and
     moves the model to `device`."""
 
     def __init__(self, model: torch.nn.Module, device, seed: int = 0,
                  learning_rate: float = 1e-4, aux_learning_rate: float = 1e-3,
                  clip_max_norm: float = 1.0, lr_milestones: Sequence[int] = (),
                  lr_gamma: float = 0.1):
-        use_f32_policy()
+        use_numerical_policy()
         self.device = torch.device(device)
         self.model = model.to(self.device)
         named = list(model.named_parameters())

@@ -133,6 +133,117 @@ def test_window_attention_rejects_bad_inputs(dev):
         ac.window_attention(flat[1:].view(qkv.shape), bias, labels, 4, 0.1)
 
 
+# B1's bf16 instances against the bf16 plain version: within one bf16 ulp
+# an element (`_bf16.ulp_errors`: the ulp taken at no less than 2^-12 of
+# the largest output); both designs of the products, each deterministic
+@pytest.mark.parametrize("design", sorted(ac.BF16_DESIGNS))
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+def test_window_attention_bf16_kernel_matches_plain(dev, ws, hd, shifted,
+                                                     design):
+    from _bf16 import ulp_errors
+
+    qkv, bias, labels = _attn_inputs(dev, ws, hd, shifted, seed=5,
+                                     hw_windows=(4, 6))
+    qkv, bias = qkv.to(torch.bfloat16), bias.to(torch.bfloat16)
+    key = ac.launch_key(ws, hd, torch.bfloat16)
+    before = _native.launch_counts[key]
+    out = ac._launch(qkv, bias, labels, ws, hd ** -0.5, design)
+    again = ac._launch(qkv, bias, labels, ws, hd ** -0.5, design)
+    plain = ac.window_attention_plain(qkv, bias, labels, ws, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert _native.launch_counts[key] == before + 2
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert ulp_errors(out, plain).max().item() <= 1.0
+    # the wrapper launches the codec's design
+    assert torch.equal(ac.window_attention(qkv, bias, labels, ws, hd ** -0.5),
+                       ac._launch(qkv, bias, labels, ws, hd ** -0.5))
+
+
+def test_window_attention_bf16_rejects_mixed_inputs(dev):
+    qkv, bias, labels = _attn_inputs(dev, 4, 40, True)
+    with pytest.raises(TypeError):
+        ac.window_attention(qkv.to(torch.bfloat16), bias, labels, 4, 0.1)
+    with pytest.raises(TypeError):
+        ac.window_attention(qkv.half(), bias.half(), labels, 4, 0.1)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        ac.window_attention(qkv.to(torch.bfloat16).requires_grad_(),
+                            bias.to(torch.bfloat16), labels, 4, 0.1)
+
+
+def test_bf16_layer_norm_rounds_once_on_the_card(dev):
+    """F.layer_norm on bf16 inputs and weights on the card: the f32
+    normalisation rounded once to bf16 (flax's LayerNorm in the JAX bf16
+    codec), within one ulp (`_bf16.ulp_errors`: the f32 statistics'
+    summation order; an output where the bias cancels the normalised
+    value is measured at 2^-12 of the largest, as its own ulp is below
+    f32's noise: on an H100, 3 of 786,432 outputs, all within 3.8e-6 of
+    zero, lie more than an ulp of their own apart)."""
+    from _bf16 import ulp_errors, ulps
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn(4096, 192, device=dev, generator=g) * 3 + 2).bfloat16()
+    w = (torch.rand(192, device=dev, generator=g) + 0.5).bfloat16()
+    b = (torch.rand(192, device=dev, generator=g) - 0.5).bfloat16()
+    got = torch.nn.functional.layer_norm(x, (192,), w, b, 1e-5)
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    want = ((xf - mean) * torch.rsqrt(var + 1e-5) * w.float()
+            + b.float()).bfloat16()
+    assert got.dtype == torch.bfloat16
+    off = ulps(got, want) > 1
+    print(f"LayerNorm bf16 on the card: {int(off.sum())} of {got.numel()} "
+          "outputs more than one ulp of their own apart, the largest "
+          f"{want.float().abs()[off].max().item() if off.any() else 0:.3g}")
+    assert ulp_errors(got, want).max().item() <= 1.0
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_bf16_pipeline2_round_trip(dev, name):
+    """The small models (`_small`, He scale) through the bf16 codec at
+    pipeline 2 on the card: the fused encode tier (full for WACNN, split
+    for STF) captures, checks and replays; its stream decodes fused and
+    per-slice to its symbols with bit-equal x_hat, the host coder's x_hat
+    (packed drain) is bit-equal to the lane coder's, no tier is demoted
+    and no hash falls back. B1 runs in bf16 in the analysis only."""
+    import warnings
+
+    from stf_tpu_torch.models import Codec
+
+    model = _small(name, he=True).to(dev)
+    x = _pattern(64, 128)
+    tier = True if name == "cnn" else "split"
+    kw = dict(device=dev, dtype=torch.bfloat16, pipeline=2)
+    lane = Codec(model, coder="lane", fused_encode=tier, **kw)
+    host = Codec(model, coder="host", **kw)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        first = lane.compress(x)
+        before = dict(_native.launch_counts)
+        enc = lane.compress(x)
+        replay = _lane_launches(before)
+        fused = lane.decompress(enc["strings"], enc["shape"])
+        lane.fused = False
+        walk = lane.decompress(enc["strings"], enc["shape"])
+        henc = host.compress(x)
+        hdec = host.decompress(henc["strings"], henc["shape"])
+    assert first["strings"] == enc["strings"] and enc["strings"][0][0][0] & 1
+    assert lane.fused_encode and lane._fused_mode == (
+        "full" if tier is True else "split")
+    for s, f, w, h in zip(enc["symbols"], fused["symbols"], walk["symbols"],
+                          henc["symbols"]):
+        assert torch.equal(f, s) and torch.equal(w, s) and torch.equal(h, s)
+    assert torch.equal(fused["x_hat"], walk["x_hat"])
+    assert torch.equal(hdec["x_hat"], fused["x_hat"])
+    assert host._pack_drain
+    bf16 = sum(v for k, v in replay.items() if k.endswith("_bf16"))
+    f32 = sum(v for k, v in replay.items()
+              if k.startswith("window_attention") and not k.endswith("_bf16"))
+    assert bf16 == (2 if name == "cnn" else 5) and f32 == 0
+
+
 @pytest.fixture(scope="module")
 def tables():
     full = build_gc_tables(get_scale_table())

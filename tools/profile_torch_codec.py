@@ -130,11 +130,12 @@ def compare_encode_paths(x, rounds, model_name):
     with torch.inference_mode():
         for name in ("full", "split"):
             codec = codecs[name]
-            graph, _, _, out, _ = next(iter(codec._enc_graphs.values()))
+            graphs, _, _, out, _ = next(iter(codec._enc_graphs.values()))
             dev = []
             for _ in range(5):
                 start.record()
-                graph.replay()
+                for graph in graphs:
+                    graph.replay()
                 end.record()
                 end.synchronize()
                 dev.append(start.elapsed_time(end))
