@@ -67,7 +67,17 @@ Phases (any failure exits non-zero; nothing is caught):
      byte 1, no demotion, each step's launches the path's (B1 in bf16 in
      the analysis, in f32 in the synthesis); warm medians, peak memory,
      device busy, and the PSNR against the f32 codec at the same weights;
- 10. the trainer, for the full-width WACNN and then STF (`phase_train`):
+ 10. the eval CLI (`phase_eval_cli`): `stf_tpu_torch.cli.eval_model.main`
+     on Kodak's layout (the same 24 images as PNGs, 16 at 512x768 and 8
+     transposed to 768x512), for each full-width model saved with the
+     port's `save_checkpoint`: the host and the lane coder at batch 1 in
+     f32, the lane coder at batch 24 in bf16 with bench.py's options,
+     and entropy estimation; the JSON document's keys, 24 reconstructions
+     at their sizes, lane = host PSNR and MS-SSIM, --half within 0.05 dB,
+     no demotion, B1 (f32 and bf16), B2, B3 and B4 launched by the runs;
+     per-image warm and first-use times beside the reference's; then
+     `prime_cache.main` for one bucket;
+ 11. the trainer, for the full-width WACNN and then STF (`phase_train`):
      30 steps of `make_train_step` on smooth_batch(8, 256, 256, seed=step)
      at bench.py's prelude lambda (0.013, 0.008); every loss finite, B1
      launched by each step exactly as its forward launches it (4 and 24;
@@ -1336,6 +1346,176 @@ def phase_codec_bf16(dev, smi, name):
     return launches
 
 
+# the eval CLI phase: the reference's seconds an image (encode, decode) on
+# its GPU (BASELINE.md), printed beside the CLI's
+REFERENCE_S = {"cnn": (0.12, 0.12), "stf": (0.15, 0.15)}
+# the JAX CLI's per-image metric keys, by kind of run
+EVAL_KEYS = {"psnr", "ms-ssim", "bpp", "encoding_time", "decoding_time",
+             "first_use_encoding_time", "first_use_decoding_time"}
+ESTIMATION_KEYS = {"psnr", "bpp", "encoding_time", "decoding_time"}
+# bench.py's options (`BENCH_CODEC`) as the CLI's flags
+BENCH_FLAGS = {
+    "cnn": ["--pipeline", "2", "--fused-encode", "1"],
+    "stf": ["--fused-encode", "split", "--transform-chunks", "3"],
+}
+HALF_PSNR_TOL = 0.05  # dB, the --half run against the f32 host run
+
+
+def phase_eval_cli(dev, smi):
+    """The port's eval CLI (`stf_tpu_torch.cli.eval_model.main`) on
+    Kodak's layout: the 24 images of smooth_batch(24, 512, 768,
+    seed=999) as PNGs, 16 at 512x768 and 8 transposed to 768x512. For
+    each full-width model (`smoke_model`, saved with the port's
+    `save_checkpoint`): (a) --backend host at batch 1 in f32 (the
+    reference's contract, per-image streams), the lane coder at batch 1
+    in f32, (b) --backend lane --batch-size 24 --half with bench.py's
+    options, and (c) --entropy-estimation. Checks the JSON document's
+    keys, bpp > 0, finite PSNR, MS-SSIM in (0, 1], 24 reconstructions at
+    their sizes, the f32 lane run's PSNR and MS-SSIM equal to the host
+    run's, the --half run's PSNR within HALF_PSNR_TOL of it, no tier
+    demoted (RuntimeWarnings are errors), and B1 (f32 and bf16), B2, B3
+    and B4 each launched by the runs (counts set to 0 before each run and
+    read after it). Then `prime_cache.main` for one bucket. Prints each
+    run's warm and first-use seconds an image beside the reference's.
+    Returns the phase's kernel launches."""
+    import collections
+    import contextlib
+    import io
+    import math
+    import tempfile
+    import warnings
+
+    import numpy as np
+    from PIL import Image
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.cli import eval_model, prime_cache
+    from stf_tpu_torch.zoo import save_checkpoint
+
+    x = (smooth_batch(BENCH_BATCH, HEIGHT, WIDTH, BENCH_SEED) * 255).astype(
+        np.uint8)
+    counts = _native.launch_counts
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory(prefix="eval_cli_") as tmp:
+        images = os.path.join(tmp, "kodak")
+        os.makedirs(images)
+        sizes = {}
+        for i, img in enumerate(x):
+            if i >= 16:
+                img = img.transpose(1, 0, 2)
+            name = f"kodim{i + 1:02d}.png"
+            Image.fromarray(np.ascontiguousarray(img)).save(
+                os.path.join(images, name))
+            sizes[name] = (img.shape[1], img.shape[0])
+
+        def run(tag, model_name, ckpt, flags, estimation=False):
+            recon = os.path.join(tmp, f"recon_{model_name}_{tag}")
+            argv = ["-d", images, "-a", model_name, "-p", ckpt, "-r", recon,
+                    *flags]
+            out = io.StringIO()
+            counts.clear()  # this run starts here
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+                warnings.simplefilter("error", RuntimeWarning)  # a demotion
+                eval_model.main(argv)
+            secs = time.perf_counter() - t0
+            ran = dict(counts)  # this run ends here
+            launches.update(ran)
+            doc = json.loads(out.getvalue())
+            if doc.keys() != {"name", "description", "results"} or \
+                    doc["name"] != model_name:
+                raise AssertionError(f"eval {model_name} {tag}: document "
+                                     f"{sorted(doc)}")
+            r = {k: v[0] for k, v in doc["results"].items()}
+            want = ESTIMATION_KEYS if estimation else EVAL_KEYS | (
+                {"lane_framing_bpp"} if "lane" in flags else set())
+            if r.keys() != want:
+                raise AssertionError(f"eval {model_name} {tag}: keys "
+                                     f"{sorted(r)}, want {sorted(want)}")
+            if not (r["bpp"] > 0 and math.isfinite(r["psnr"])) or (
+                    not estimation and not 0 < r["ms-ssim"] <= 1):
+                raise AssertionError(f"eval {model_name} {tag}: {r}")
+            written = sorted(os.listdir(recon))
+            if written != sorted(sizes):
+                raise AssertionError(f"eval {model_name} {tag}: wrote "
+                                     f"{len(written)} reconstructions")
+            for name in written:
+                with Image.open(os.path.join(recon, name)) as im:
+                    if im.size != sizes[name]:
+                        raise AssertionError(f"eval {model_name} {tag}: "
+                                             f"{name} is {im.size}")
+            b1 = {k: v for k, v in ran.items()
+                  if k.startswith("window_attention")}
+            first = (f", first use {r['first_use_encoding_time'] * 1e3:.1f} + "
+                     f"{r['first_use_decoding_time'] * 1e3:.1f} ms"
+                     if "first_use_encoding_time" in r else "")
+            # the estimation path has no cold call: its mean holds each
+            # shape's first forward, as the JAX CLI's holds its compiles
+            mean = ("the mean of all 24, each shape's first call included"
+                    if estimation else "warm")
+            print(f"eval {model_name} {tag} ({' '.join(flags) or 'defaults'}; "
+                  f"{smi}): {r['encoding_time'] * 1e3:.2f} + "
+                  f"{r['decoding_time'] * 1e3:.2f} ms an image, {mean}{first}; "
+                  f"bpp {r['bpp']:.4f}"
+                  + (f" (lane framing {r['lane_framing_bpp']:.4f})"
+                     if "lane_framing_bpp" in r else "")
+                  + f", PSNR {r['psnr']:.4f} dB"
+                  + (f", MS-SSIM {r['ms-ssim']:.6f}" if "ms-ssim" in r else "")
+                  + f"; reference {REFERENCE_S[model_name][0] * 1e3:.0f} + "
+                  f"{REFERENCE_S[model_name][1] * 1e3:.0f} ms; command "
+                  f"{secs:.1f} s; B1 {b1}, B2 {ran.get('lane_decode', 0)}, "
+                  f"B3 {ran.get('lane_encode', 0)}, B4 "
+                  f"{ran.get('layout_pin', 0)}")
+            return r, ran
+
+        for model_name in ("cnn", "stf"):
+            ckpt = os.path.join(tmp, f"{model_name}.pth.tar")
+            save_checkpoint(ckpt, model_name, smoke_model(model_name))
+            host, _ = run("host", model_name, ckpt, ["--backend", "host"])
+            lane, lane_ran = run("lane f32", model_name, ckpt,
+                                 ["--backend", "lane"])
+            half, half_ran = run("lane bf16 batch 24", model_name, ckpt,
+                                 ["--backend", "lane", "--batch-size", "24",
+                                  "--half", *BENCH_FLAGS[model_name]])
+            est, est_ran = run("entropy estimation", model_name, ckpt,
+                               ["--entropy-estimation"], estimation=True)
+            if (lane["psnr"], lane["ms-ssim"]) != (host["psnr"], host["ms-ssim"]):
+                raise AssertionError(
+                    f"eval {model_name}: lane PSNR / MS-SSIM {lane['psnr']} / "
+                    f"{lane['ms-ssim']} is not the host run's {host['psnr']} / "
+                    f"{host['ms-ssim']}")
+            gap = half["psnr"] - host["psnr"]
+            if abs(gap) > HALF_PSNR_TOL:
+                raise AssertionError(f"eval {model_name}: --half PSNR {gap:+.4f} "
+                                     "dB from the f32 run")
+            print(f"eval {model_name}: --half PSNR {gap:+.4f} dB from f32; "
+                  f"entropy estimation {est['bpp']:.4f} bpp against the host "
+                  f"coder's {host['bpp']:.4f} (PSNR {est['psnr']:.4f} dB)")
+
+            def b1(d, half):
+                return sum(v for k, v in d.items()
+                           if k.startswith("window_attention")
+                           and k.endswith("_bf16") == half)
+
+            for what, got in (("B1 f32", b1(est_ran, False)),
+                              ("B1 bf16", b1(half_ran, True)),
+                              ("B2", lane_ran.get("lane_decode", 0)),
+                              ("B3", half_ran.get("lane_encode", 0)),
+                              ("B4", half_ran.get("layout_pin", 0))):
+                if not got:
+                    raise AssertionError(f"eval {model_name}: {what} never "
+                                         "launched by the CLI")
+
+        counts.clear()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            prime_cache.main(["-a", "cnn", "-p", os.path.join(tmp, "cnn.pth.tar"),
+                              "--shapes", "512x768", "--batch-sizes", "1",
+                              "--backend", "lane"])
+        launches.update(counts)
+    return dict(launches)
+
+
 def kernel_group(key):
     """A kernel's kind by its name: B1, convolution (cuDNN's implicit-GEMM,
     FFT (with its complex GEMMs and transforms), direct and Winograd
@@ -1651,6 +1831,8 @@ def main():
     phase_stf_seed_fallback(dev)
     for model_name in ("cnn", "stf"):
         launches[f"{model_name}_bf16"] = phase_codec_bf16(dev, smi, model_name)
+    eval_launches = phase_eval_cli(dev, smi)
+    print(f"eval CLI phase launches: {eval_launches}")
     for model_name in ("cnn", "stf"):
         phase_train(dev, smi, model_name)
     for row in rows:

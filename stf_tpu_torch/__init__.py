@@ -11,11 +11,14 @@ counterpart is easy to find:
     stf_tpu_torch.layers    convs, GDN, window attention (CUDA core kernel),
                             Swin blocks
     stf_tpu_torch.models    WACNN, STF, the channel-AR base and the Codec
-    stf_tpu_torch.zoo       registry and the JAX-params -> state_dict bridge
-    stf_tpu_torch.utils     metrics (PSNR, SSIM, MS-SSIM), the numerical policy
+    stf_tpu_torch.zoo       registry, checkpoints, published RD curves and
+                            the JAX-params -> state_dict bridge
+    stf_tpu_torch.utils     metrics (PSNR, SSIM, MS-SSIM), BD-rate, the
+                            numerical policy
     stf_tpu_torch.datasets  image-folder loader and device prefetch
     stf_tpu_torch.training  RD losses, dual-Adam train state and steps,
                             checkpoints, the trainer CLI
+    stf_tpu_torch.cli       the eval CLI, rd_compare and prime_cache
 
 Hand-written CUDA kernels live in `csrc/` and are built with nvcc for
 sm_90a at first use (`stf_tpu_torch._native`).

@@ -235,6 +235,15 @@ def pack_lane_stream(segments) -> bytes:
     return b"".join(head + body)
 
 
+def fixed_overhead_bytes(n_segments: int) -> int:
+    """Bytes of fixed per-segment framing in a packed lane stream: the
+    format word, per-segment metadata, and the G*K lane init states, the
+    part that does not scale with content entropy (~4.2 KB a segment).
+    Subtract it from the stream length for a host-equivalent rate
+    estimate (RD curves should use the host coder directly)."""
+    return 8 + n_segments * (4 * (1 + 2 * GROUPS) + 4 * GROUPS * K)
+
+
 def unpack_lane_stream(buf: bytes):
     """Inverse of pack_lane_stream: a list of LaneStream segments. Checks
     the format word and every section's extent, so truncation or a layout

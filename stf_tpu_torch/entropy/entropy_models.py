@@ -124,13 +124,16 @@ class EntropyBottleneck(nn.Module):
             t = getattr(self, name)
             return t.detach() if stop_gradient else t
 
+        # softplus and tanh run in the parameters' own dtype, their results
+        # meet the logits in the logits' (flax's promotion, which a model
+        # cast to bf16 and fed f32 values computes: `half_weights`)
         logits = inputs
         for i in range(self.n_stages):
-            logits = torch.matmul(F.softplus(param(f"_matrix{i}")), logits)
-            logits = logits + param(f"_bias{i}")
+            matrix = F.softplus(param(f"_matrix{i}")).to(logits.dtype)
+            logits = torch.matmul(matrix, logits) + param(f"_bias{i}")
             if i < self.n_stages - 1:
-                factor = param(f"_factor{i}")
-                logits = logits + torch.tanh(factor) * torch.tanh(logits)
+                factor = torch.tanh(param(f"_factor{i}")).to(logits.dtype)
+                logits = logits + factor * torch.tanh(logits)
         return logits
 
     def aux_loss(self):

@@ -223,25 +223,54 @@ def _unpack12(packed_np: np.ndarray, n: int):
     return (v >> 6).astype(np.int32) - 32, (v & 63).astype(np.uint8)
 
 
-def _half_models(model, dtype, device):
-    """(coding model, analysis model) of a codec of half `dtype`: two
-    copies of `model` on `device` in eval mode whose float parameters, but
-    the entropy bottleneck's, are rounded to `dtype`, as the JAX codec
-    casts its parameters. The analysis model holds them in `dtype`: the
-    analysis (g_a, h_a) computes in it. The coding model holds them in
-    f32 for the f32 hyper synthesis, walk and synthesis, but GDN's beta
-    and gamma, which stay in `dtype`: flax reparametrises them in it and
-    promotes the result to the f32 activations (`GDN.forward`)."""
-    coding = copy.deepcopy(model).to(device).eval()
+def half_weights(model, dtype, device, bottleneck: bool = False):
+    """A copy of `model` on `device` in eval mode that computes in f32 on
+    weights rounded to `dtype`: what flax computes for a model whose
+    parameters were cast to `dtype` and that is fed f32 activations (each
+    layer promotes to the wider of the two dtypes). Every float parameter
+    holds its rounded value in f32, but those a layer transforms before
+    they meet an activation stay in `dtype`, so that the transform runs in
+    it as flax runs it: GDN's beta and gamma (reparametrised, `GDN.forward`)
+    and, with `bottleneck`, the entropy bottleneck's matrices and factors
+    (softplus and tanh). Without `bottleneck` the entropy bottleneck keeps
+    its f32 parameters, as the JAX codec keeps them for its CDF tables."""
+    out = copy.deepcopy(model).to(device).eval()
     with torch.no_grad():
-        for name, p in coding.named_parameters():
-            if not name.startswith("entropy_bottleneck."):
+        for name, p in out.named_parameters():
+            if bottleneck or not name.startswith("entropy_bottleneck."):
                 p.copy_(p.to(dtype))
-        for m in coding.modules():
-            if isinstance(m, GDN):
-                m.beta.data = m.beta.data.to(dtype)
-                m.gamma.data = m.gamma.data.to(dtype)
+        kept = [(m, ("beta", "gamma")) for m in out.modules()
+                if isinstance(m, GDN)]
+        if bottleneck:
+            eb = out.entropy_bottleneck
+            kept.append((eb, [n for n, _ in eb.named_parameters()
+                              if n.startswith(("_matrix", "_factor"))]))
+        for m, names in kept:
+            for n in names:
+                p = getattr(m, n)
+                p.data = p.data.to(dtype)
+    return out
+
+
+def _half_models(model, dtype, device):
+    """(coding model, analysis model) of a codec of half `dtype`: the
+    coding model is `half_weights(model, dtype, device)`, for the f32
+    hyper synthesis, walk and synthesis; the analysis model is a copy of
+    it that holds every parameter in `dtype`, since the analysis (g_a,
+    h_a) computes in it, fed the image in `dtype`. The caller's model is
+    left as it is."""
+    coding = half_weights(model, dtype, device)
     return coding, copy.deepcopy(coding).to(dtype)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device a command line's `--device` names; "cuda" raises
+    where there is no card (the port never falls back to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: stf_tpu_torch runs on the GPU; "
+                           "pass --device cpu to run on the CPU")
+    return device
 
 
 def default_device() -> torch.device:

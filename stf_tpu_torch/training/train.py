@@ -21,6 +21,8 @@ import time
 
 import torch
 
+from ..models.codec import resolve_device
+
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="RD training (PyTorch)")
@@ -47,14 +49,6 @@ def parse_args(argv):
                    help="torch device (default cuda; cpu runs the plain "
                    "versions of the kernels)")
     return p.parse_args(argv)
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the trainer runs on the GPU; pass "
-                           "--device cpu to train on the CPU")
-    return device
 
 
 def main(argv=None):

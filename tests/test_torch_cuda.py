@@ -963,3 +963,72 @@ def test_train_step_on_the_card_matches_the_cpu_at_he_scale(dev, name,
         assert all(e <= tol for e in grad_err.values()), (k, worst(grad_err))
     if own_flips == 0:
         assert all(e <= GRAD_TOL_CUDNN_HE for e in errs["own"][1].values())
+
+
+# the eval CLI on the card: full-width WACNN (B1 has instances for the full
+# models' head widths) and the small STF of tests/_torch_port.py (head width
+# 16), over two 64x64 images and a 70x90 one that pads to 128x128
+EVAL_MODELS = {"cnn": {}, "stf": dict(embed_dim=16, depths=(1, 1, 2, 1),
+                                      num_heads=(1, 2, 4, 8), num_slices=4)}
+
+
+@pytest.fixture
+def eval_images(tmp_path):
+    from PIL import Image
+
+    for name, (h, w), k in (("a.png", (64, 64), 0), ("b.png", (64, 64), 1),
+                            ("c.png", (70, 90), 2)):
+        Image.fromarray(_pattern(h, w, k)[0]).save(tmp_path / name)
+    from stf_tpu_torch.cli import eval_model as cli
+
+    return cli.collect_images(str(tmp_path))
+
+
+def _eval(dev, name, files, recon, **kw):
+    import warnings
+
+    from stf_tpu_torch.cli import eval_model as cli
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model(name, seed=0, **EVAL_MODELS[name])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a demoted tier warns
+        return cli.eval_model(model, files, recon_path=str(recon), device=dev,
+                              **kw)
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_eval_cli_lane_and_host_give_equal_quality(dev, name, eval_images,
+                                                   tmp_path):
+    """The lane and host coders decode the same symbols, so the same
+    x_hat: PSNR and MS-SSIM equal."""
+    host = _eval(dev, name, eval_images, tmp_path / "h")
+    lane = _eval(dev, name, eval_images, tmp_path / "l", backend="lane")
+    assert lane["psnr"] == host["psnr"] and lane["ms-ssim"] == host["ms-ssim"]
+    assert lane["lane_framing_bpp"] > 0 and "lane_framing_bpp" not in host
+
+
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_eval_cli_half_batched_pipelined_fused_is_not_demoted(
+        dev, name, eval_images, tmp_path):
+    """--half --batch-size 2 --pipeline 2 --fused-encode 1: the tier's
+    self-check passes for both batch shapes (warnings are errors) and the
+    quality is that of the f32 codec within 0.05 dB."""
+    half = _eval(dev, name, eval_images, tmp_path / "b", backend="lane",
+                 half=True, batch_size=2, pipeline=2, fused_encode=True)
+    f32 = _eval(dev, name, eval_images, tmp_path / "f", backend="lane")
+    assert abs(half["psnr"] - f32["psnr"]) <= 0.05
+    assert half["bpp"] > 0 and "first_use_encoding_time" in half
+
+
+@pytest.mark.parametrize("backend", ["host", "lane"])
+def test_eval_cli_prefetch_gives_the_same_metrics(dev, backend, eval_images,
+                                                  tmp_path):
+    """--prefetch over three batches: each next batch is uploaded on a
+    side stream while the current one codes, and the coding stream waits
+    for it; the metrics are those of the run without it."""
+    runs = [_eval(dev, "cnn", eval_images, tmp_path / str(p), backend=backend,
+                  prefetch=p) for p in (False, True)]
+    for k, v in runs[0].items():
+        if "time" not in k:
+            assert runs[1][k] == v, k
