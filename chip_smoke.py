@@ -10,17 +10,21 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the four CUDA kernels (nvcc, sm_90a) and the rANS library from
      the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
-     WACNN's two attention geometries and STF's four stage geometries
-     (window 4, head width 16) for batch 2 with shift labels, two
+     WACNN's two attention geometries, STF's four stage geometries
+     (window 4, head width 16; DYSTF's are the same) and TBC's six (8x8
+     windows at head widths 4, 6, 8 and 10, its hyper stacks' 4x4 at 6;
+     the widths that are not a multiple of 8 run padded to one inside the
+     kernel) for batch 2 with shift labels, two
      launches bit-equal, timed beside SDPA with the same mask; under
      autograd (`WindowAttentionFunction`: the kernel forward, the
      closed-form backward) d qkv and d bias within ATTN_GRAD_TOL of the
      plain version's autograd gradients at each geometry; with the
      bias x30, no farther than the f32 plain version from an f64 one, at
-     the first geometry of each of the three instances; then B1's bf16
+     the first geometry of each instance; then B1's bf16
      instances at the bench path's shapes (`phase_attention_bf16`: WACNN's
      two g_a geometries at batch 24, STF's four analysis stages at batch
-     8) against the bf16 plain version, within one bf16 ulp, for both
+     8) and at TBC's bf16 analysis shapes (batch 2) against the bf16 plain
+     version, within one bf16 ulp, for both
      designs of the products (bf16 mma.sync, the codec's, and TF32 on
      the converted values), each timed beside the plain version and SDPA;
   4. kernel B2 (lane-rANS decode) against its plain version and the
@@ -54,9 +58,17 @@ Phases (any failure exits non-zero; nothing is caught):
   8. the same phase, with the same checks, for a full-width STF (embed 48,
      depths 2/2/6/2, heads 3/6/12/24, window 4, M=384, 12 slices): B1 runs
      12 times an analysis and 12 times a synthesis, B4 38 times a fused
-     walk (25 packed, 13 transpose). Each path's launch counts are set to
-     0 just before it and read just after; B1's STF row takes its
-     launches from the STF path, every other row from WACNN's;
+     walk (25 packed, 13 transpose); then for the full-width TBC (B1 30
+     times a compress: 12 analysis, 6 h_a, 6 + 6 hyper synthesis; 24 a
+     decompress), CC and CC_GD (no B1; CC_GD's gates and masks drawn at
+     random, a third of its gated channels masked) and DYSTF (B1 12 + 12,
+     as STF; its analysis routes tokens). Each path's launch counts are
+     set to 0 just before it and read just after; B1's STF row takes its
+     launches from the STF path, TBC's rows from the TBC path, every other
+     row from WACNN's; then `phase_tbc_bf16`: the full-width TBC through
+     the bf16 codec (full tier, batch 2), B1's bf16 instances at TBC's
+     analysis, launches by instance checked, the stream the per-slice
+     one, symbols round trip, fused = per-slice x_hat;
   9. the codec as bench.py runs it (`phase_codec_bf16`), for the
      full-width WACNN and then STF: smooth_batch(24, 512, 768, seed=999)
      as uint8, cnn in bf16 at pipeline 2 on the full tier, stf in bf16 at
@@ -125,9 +137,12 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 ATTN_TOL = 1e-5
 # (model, feature map, channels, window, heads) of every attention geometry
-# at a 512x768 input: WACNN's g_a/g_s blocks, and STF's four Swin stages
-# (head width 16 throughout). The first geometry of each (window, head
-# width) is that kernel's row in the kernels line.
+# at a 512x768 input: WACNN's g_a/g_s blocks, STF's four Swin stages (head
+# width 16 throughout; DYSTF's are the same), TBC's four analysis and
+# synthesis stages (8x8 windows, 32 heads: head widths 4, 6, 8, 10) and its
+# hyper stacks' two (4x4, 32 heads over 192: head width 6). The first
+# geometry of each (window, head width) is that kernel's row in the kernels
+# line.
 ATTN_GEOMS = (
     ("cnn", (128, 192), 192, 8, 8),
     ("cnn", (32, 48), 320, 4, 8),
@@ -135,9 +150,21 @@ ATTN_GEOMS = (
     ("stf", (128, 192), 96, 4, 6),
     ("stf", (64, 96), 192, 4, 12),
     ("stf", (32, 48), 384, 4, 24),
+    ("tbc", (256, 384), 128, 8, 32),
+    ("tbc", (128, 192), 192, 8, 32),
+    ("tbc", (64, 96), 256, 8, 32),
+    ("tbc", (32, 48), 320, 8, 32),
+    ("tbc", (16, 24), 192, 4, 32),
+    ("tbc", (8, 12), 192, 4, 32),
 )
-# B1 launches in one analysis (= in one synthesis) of each model
-B1_PER_TRANSFORM = {"cnn": 2, "stf": 12}
+# B1 launches of each registry model in one analysis (g_a and h_a), one
+# hyper synthesis (h_mean_s and h_scale_s) and one synthesis: a compress
+# runs the first two, a decompress the last two. Only TBC's hyper stacks
+# attend; CC and CC_GD run no B1.
+B1_CALLS = {"cnn": (2, 0, 2), "stf": (12, 0, 12), "dystf": (12, 0, 12),
+            "tbc": (12 + 6, 6 + 6, 12), "cc": (0, 0, 0), "cc_gd": (0, 0, 0)}
+# the families of the codec phase, in order
+CODEC_MODELS = ("cnn", "stf", "tbc", "cc", "cc_gd", "dystf")
 # B1's gradients (the Function's closed-form backward) against autograd
 # through the plain version: max abs difference over the largest plain
 # gradient (f32 products summed in other orders; up to 3.3e-7 on an H100)
@@ -159,8 +186,10 @@ BENCH_CODEC = {
 }
 # (model, feature map, channels, window, heads, batch) of B1's bf16 calls
 # on that path: WACNN's two g_a blocks at batch 24, STF's four analysis
-# stages at its chunk's batch 8; the first of each (window, head width) is
-# that instance's kernels row
+# stages at its chunk's batch 8; and on the bf16 TBC round trip
+# (`phase_tbc_bf16`, batch 2): its analysis stages and its h_a's first
+# stage. The first of each (window, head width) is that instance's kernels
+# row
 ATTN_BF16_GEOMS = (
     ("cnn", (128, 192), 192, 8, 8, 24),
     ("cnn", (32, 48), 320, 4, 8, 24),
@@ -168,8 +197,15 @@ ATTN_BF16_GEOMS = (
     ("stf", (128, 192), 96, 4, 6, 8),
     ("stf", (64, 96), 192, 4, 12, 8),
     ("stf", (32, 48), 384, 4, 24, 8),
+    ("tbc", (256, 384), 128, 8, 32, 2),
+    ("tbc", (128, 192), 192, 8, 32, 2),
+    ("tbc", (64, 96), 256, 8, 32, 2),
+    ("tbc", (32, 48), 320, 8, 32, 2),
+    ("tbc", (16, 24), 192, 4, 32, 2),
 )
 WARM_CALLS = 3  # warm calls a median of the batch-24 phase takes
+# the lift of the scale stacks' last bias (`smoke_model`) by family
+SCALE_LIFT = {"stf": 1.0, "dystf": 1.0}
 
 
 def smooth_batch(n, h, w, seed):
@@ -357,6 +393,8 @@ def phase_attention_bf16(dev):
                            ac._launch(qkv, bias, labels, ws, scale, chosen)):
             raise AssertionError(f"B1 {name}: the wrapper did not launch the "
                                  f"{chosen} design")
+        eager_ms = cuda_ms(
+            lambda: ac.window_attention(qkv, bias, labels, ws, scale), 50)
         q, k, v = ac.partition_qkv(qkv, ws, nh)
         nW = labels.shape[0]
         mask = (bias[None, None].float()
@@ -377,7 +415,8 @@ def phase_attention_bf16(dev):
               + "; ".join(f"{d}: {e[0]:.3g} ulps at most, {e[1]} of "
                           f"{plain.numel()} elements differ, max abs {e[2]:.3g}, "
                           f"{ms[d]:.4f} ms" for d, e in errs.items())
-              + f"; deterministic; plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+              + f"; deterministic; eager per call {eager_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
               f"(max abs {lib_err:.3g}) bound {bound_ms:.4f} ms ({bound_by}); "
               f"{chosen} at {100 * bound_ms / ms[chosen]:.1f}% of bound, "
               f"{lib_ms / ms[chosen]:.2f}x sdpa, {ms[other] / ms[chosen]:.2f}x "
@@ -389,8 +428,9 @@ def phase_attention_bf16(dev):
                 replaces="stf_tpu/layers/pallas_attention.py:49",
                 launches=None, max_abs_err=errs[chosen][2], ms=ms[chosen],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, design=chosen, other_design=other,
-                other_design_ms=ms[other], path=f"{model}_bf16",
+                library_ms=lib_ms, eager_ms=eager_ms, design=chosen,
+                other_design=other, other_design_ms=ms[other],
+                path=f"{model}_bf16",
             ))
     return rows
 
@@ -853,31 +893,42 @@ def host_lane_stream(codec, enc):
 
 def smoke_model(name):
     """The full-width registry model `name` with weights drawn from SEED.
-    For "stf" the scale stacks' last bias is lifted by 1: its seed weights
+    For "stf" and "dystf" (the same slice stacks and hyper synthesis) the
+    scale stacks' last bias is lifted by 1 (SCALE_LIFT): STF's seed weights
     put every predicted scale at the table's floor (index 0, 0.11) while
     y - mu spreads with std ~0.8, so at 512x768 one lane group of one
     slice escapes past B3's side channel (~1/8 of its symbols) and the
     port's fused encode tiers code that call through the per-slice walk
     (`phase_stf_seed_fallback` checks that path): the tiers' own graphs
     would not be checked. A trained model predicts scales near y's
-    spread; the lift puts these at ~1, table index 18-19."""
+    spread; the lift puts these at ~1, table index 18-19. CC_GD's gates
+    are drawn from U(0.5, 1.5) and its masks from Bernoulli(2/3), so that
+    they zero about a third of each gated layer's channels (at their init
+    of ones a gate read from the wrong index would go unseen)."""
     import torch
 
+    from stf_tpu_torch.models.cc_gd import GateDecorator
     from stf_tpu_torch.zoo import create_model
 
     model = create_model(name, seed=SEED)
-    if name == "stf":
-        with torch.no_grad():
+    with torch.no_grad():
+        if name in SCALE_LIFT:
             for stack in model.cc_scale_transforms:
-                stack[-1].bias += 1.0
+                stack[-1].bias += SCALE_LIFT[name]
+        gen = torch.Generator().manual_seed(SEED)
+        for m in model.modules():
+            if isinstance(m, GateDecorator):
+                m.gate.copy_(torch.rand(m.gate.shape, generator=gen) + 0.5)
+                m.mask.copy_((torch.rand(m.mask.shape, generator=gen)
+                              < 2 / 3).float())
     return model
 
 
 def phase_codec(dev, smi, name):
-    """A main path: the full-width registry model `name` ("cnn" or "stf")
-    through the lane coder (B3 encode, fused and per-slice decompress),
-    the host coder, and the two fused encode tiers' round trips. Returns
-    the kernel launches of the path."""
+    """A main path: the full-width registry model `name` (one of
+    CODEC_MODELS) through the lane coder (B3 encode, fused and per-slice
+    decompress), the host coder, and the two fused encode tiers' round
+    trips. Returns the kernel launches of the path."""
     import warnings
 
     import numpy as np
@@ -897,7 +948,10 @@ def phase_codec(dev, smi, name):
                             fused_encode="split")}
     counts = _native.launch_counts
     S = model.num_slices
-    A = B1_PER_TRANSFORM[name]  # B1 launches an analysis (= a synthesis)
+    # B1 launches in an analysis, a hyper synthesis and a synthesis; a
+    # compress runs E of them, a decompress D
+    an, hy, sy = B1_CALLS[name]
+    E, D = an + hy, hy + sy
     pins = 3 * S + 2  # B4 launches in a fused walk
 
     def timed(fn, *a):
@@ -991,8 +1045,11 @@ def phase_codec(dev, smi, name):
         for e in (first_enc, tenc):
             y = e["strings"][0][0]
             if y[0] != y_want[0] | 1 or y[1:] != y_want[1:]:
-                raise AssertionError(f"{name} {tier} tier: y-stream is not the "
-                                     "per-slice stream with the fused flag")
+                raise AssertionError(
+                    f"{name} {tier} tier: y-stream is not the per-slice "
+                    "stream with the fused flag (B3 segments the per-slice "
+                    f"compress sent to the host encoder: {enc['host_encoded']} "
+                    f"of {S})")
             if e["strings"][1] != enc["strings"][1]:
                 raise AssertionError(f"{name} {tier} tier: z strings differ")
             if not all(torch.equal(a, b) for a, b in
@@ -1021,23 +1078,24 @@ def phase_codec(dev, smi, name):
     # (step, B1, B2, B3, B4) launches each step must show. A tier's first
     # compress runs its walk eagerly (warm-up), captures it (counts taken
     # back) and replays it, then its self-check's fused decompress does the
-    # same (B1 A + A, B2 S + S, B4 pins + pins); the split tier's analysis
-    # runs eagerly once a call (B1 A). Neither tier's walk pins.
+    # same (B1 E + E and D + D, B2 S + S, B4 pins + pins); the split tier's
+    # analysis and hyper synthesis run eagerly once a call (B1 E). Neither
+    # tier's walk pins.
     (full_first, full_replay, full_dec), _, _, _ = tier_steps["full"]
     (split_first, split_replay, split_dec), _, _, _ = tier_steps["split"]
     want = (
-        ("lane compress", A, 0, S, 0),
-        (first, 2 * A, 2 * S, 0, 2 * pins),
-        ("host compress", A, 0, 0, 0),
-        ("host decompress", A, 0, 0, 0),
-        (fused, A, S, 0, pins),
-        (per_slice, A, S, 0, 0),
-        (full_first, 2 * A + 2 * A, 2 * S, 2 * S, 2 * pins),
-        (full_replay, A, 0, S, 0),
-        (full_dec, A, S, 0, pins),
-        (split_first, A + 2 * A, 2 * S, 2 * S, 2 * pins),
-        (split_replay, A, 0, S, 0),
-        (split_dec, A, S, 0, pins),
+        ("lane compress", E, 0, S, 0),
+        (first, 2 * D, 2 * S, 0, 2 * pins),
+        ("host compress", E, 0, 0, 0),
+        ("host decompress", D, 0, 0, 0),
+        (fused, D, S, 0, pins),
+        (per_slice, D, S, 0, 0),
+        (full_first, 2 * E + 2 * D, 2 * S, 2 * S, 2 * pins),
+        (full_replay, E, 0, S, 0),
+        (full_dec, D, S, 0, pins),
+        (split_first, E + 2 * D, 2 * S, 2 * S, 2 * pins),
+        (split_replay, E, 0, S, 0),
+        (split_dec, D, S, 0, pins),
     )
     for step, *expect in want:
         d = steps[step]
@@ -1157,6 +1215,105 @@ def phase_stf_seed_fallback(dev):
           "undemoted; it decodes fused to the same symbols")
 
 
+def phase_tbc_bf16(dev, smi):
+    """The full-width TBC through the bf16 codec at batch 2 on the full
+    fused encode tier: its analysis (ana and h_a) in bf16, so B1's five
+    new bf16 instances run, its hyper synthesis, walk and synthesis in f32.
+    The tier's first call (capture and self-check) and a replay, the fused
+    and per-slice decompress, and a per-slice bf16 compress: the replay's
+    stream is the per-slice one from byte 1 on, symbols round trip, the two
+    x_hat bit-equal, no demotion or hash fallback (warnings are errors);
+    B1's launches a compress and a decompress by instance are the
+    stages' block counts. Prints the PSNR against the f32 codec. Returns
+    the path's kernel launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.layers.attention_core import launch_key
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.utils import psnr
+
+    x = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round().astype(np.uint8)
+    model = smoke_model("tbc")
+    bf16 = dict(device=dev, dtype=torch.bfloat16)
+    tier = Codec(model, coder="lane", fused_encode=True, **bf16)
+    per_slice = Codec(model, coder="lane", **bf16)
+    counts = _native.launch_counts
+    steps = {}
+
+    def run(step, fn, *a):
+        snap = dict(counts)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = fn(*a)
+        torch.cuda.synchronize()
+        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
+                       if v - snap.get(k, 0)}
+        return out
+
+    def walk_decompress(enc):
+        tier.fused = False
+        try:
+            return tier.decompress(enc["strings"], enc["shape"])
+        finally:
+            tier.fused = True
+
+    counts.clear()  # this path starts here
+    first = run("full-tier compress, first", tier.compress, x)
+    enc = run("full-tier compress (replay)", tier.compress, x)
+    dec = run("fused decompress (replay)", tier.decompress, enc["strings"],
+              enc["shape"])
+    wdec = run("per-slice decompress", walk_decompress, enc)
+    launches = dict(counts)  # this path ends here
+    want = run("per-slice compress", per_slice.compress, x)
+    for step, d in steps.items():
+        print(f"tbc bf16: launches in {step}: {d}")
+    if tier._fused_mode != "full" or not tier.fused_encode:
+        raise AssertionError("tbc bf16: the full tier was demoted")
+    y, y_want = enc["strings"][0][0], want["strings"][0][0]
+    if first["strings"] != enc["strings"] or y[0] != y_want[0] | 1 or \
+            y[1:] != y_want[1:] or enc["strings"][1] != want["strings"][1]:
+        raise AssertionError("tbc bf16: the tier's stream is not the "
+                             "per-slice stream with the fused flag")
+    for what, d in (("fused", dec), ("per-slice", wdec)):
+        if not all(torch.equal(a, b) for a, b in zip(enc["symbols"],
+                                                     d["symbols"])):
+            raise AssertionError(f"tbc bf16 {what}: decoded symbols differ")
+    if not torch.equal(dec["x_hat"], wdec["x_hat"]):
+        raise AssertionError("tbc bf16: fused and per-slice x_hat differ")
+    # analysis stages 2/2/6/2 blocks at head widths 4/6/8/10, h_a 5 + 1 at
+    # 4x4 / 6, the two hyper synthesis stacks 6 each, the synthesis 2/6/2/2
+    # at 10/8/6/4
+    analysis = {(8, 4): 2, (8, 6): 2, (8, 8): 6, (8, 10): 2, (4, 6): 6}
+    bf16_key = lambda g: launch_key(*g, torch.bfloat16)  # noqa: E731
+    f32_key = lambda g: launch_key(*g)  # noqa: E731
+    compress = {bf16_key(g): n for g, n in analysis.items()}
+    compress[f32_key((4, 6))] = 12
+    decompress = {f32_key(g): n for g, n in analysis.items()}
+    decompress[f32_key((4, 6))] = 12
+    for step, expect in (("full-tier compress (replay)", compress),
+                         ("fused decompress (replay)", decompress),
+                         ("per-slice decompress", decompress)):
+        got = {k: v for k, v in steps[step].items()
+               if k.startswith("window_attention")}
+        if got != expect:
+            raise AssertionError(f"tbc bf16 {step}: B1 launches {got}, want "
+                                 f"{expect}")
+    f32 = Codec(model, coder="lane", device=dev)
+    f32_enc = f32.compress(x)
+    f32_hat = f32.decompress(f32_enc["strings"], f32_enc["shape"])["x_hat"]
+    xf = torch.from_numpy(x).to(dev).float() / 255.0
+    p16, p32 = psnr(dec["x_hat"], xf).item(), psnr(f32_hat, xf).item()
+    print(f"tbc bf16 round trip ({BATCH}x{HEIGHT}x{WIDTH}, full tier; {smi}): "
+          "stream = per-slice stream, symbols round trip, fused = per-slice "
+          f"x_hat; B1 a compress {compress}, a decompress {decompress}; PSNR "
+          f"to the image bf16 {p16:.4f} dB, f32 {p32:.4f} dB (seed weights)")
+    return launches
+
+
 def phase_codec_bf16(dev, smi, name):
     """The codec as bench.py runs it (`BENCH_CODEC`): the full-width model
     `name` in bf16 on smooth_batch(24, 512, 768, seed=999) through its
@@ -1195,7 +1352,7 @@ def phase_codec_bf16(dev, smi, name):
     chunks = opts.get("analyze_chunks", 1)
     # B1 launches in one analysis (bf16) and one synthesis (f32) of the
     # batch, each run in `chunks` sub-batches
-    A = B1_PER_TRANSFORM[name] * chunks
+    A = B1_CALLS[name][0] * chunks
     pins = 1 + P * (3 * S + 1)  # B4 launches in a fused walk
     mode = "full" if opts["fused_encode"] is True else "split"
 
@@ -1587,7 +1744,7 @@ def phase_train(dev, smi, name):
     counts = _native.launch_counts
     b1 = lambda: sum(v for k, v in counts.items()  # noqa: E731
                      if k.startswith("window_attention"))
-    per_step = 2 * B1_PER_TRANSFORM[name]
+    per_step = sum(B1_CALLS[name])  # the training forward runs them all
     lmbda = TRAIN_LMBDA[name]
     model = create_model(name, seed=SEED)
     state = TrainState(model, dev, seed=SEED)
@@ -1827,8 +1984,9 @@ def main():
     rows = (phase_attention(dev) + phase_attention_bf16(dev)
             + phase_lane_decode(dev, sm_mhz) + phase_lane_encode(dev, sm_mhz)
             + phase_layout_pin(dev))
-    launches = {name: phase_codec(dev, smi, name) for name in ("cnn", "stf")}
+    launches = {name: phase_codec(dev, smi, name) for name in CODEC_MODELS}
     phase_stf_seed_fallback(dev)
+    launches["tbc_bf16"] = phase_tbc_bf16(dev, smi)
     for model_name in ("cnn", "stf"):
         launches[f"{model_name}_bf16"] = phase_codec_bf16(dev, smi, model_name)
     eval_launches = phase_eval_cli(dev, smi)
@@ -1837,7 +1995,7 @@ def main():
         phase_train(dev, smi, model_name)
     for row in rows:
         # B1's rows count on their model's path (the bf16 instances on the
-        # bench path's), B2-B4's on WACNN's
+        # bench path's or TBC's bf16 round trip's), B2-B4's on WACNN's
         path = row.pop("path", "cnn")
         row["launches"] = launches[path].get(row["name"], 0)
         if not row["launches"]:

@@ -84,6 +84,19 @@
 // a run-time head-group size spent as many instructions on the staging
 // loop's divisions as on S.
 
+// Head widths that are not a multiple of 8 (TBC's 4, 6 and 10 at 8x8
+// windows and 6 at 4x4; TBC's 8 too) run the same tiles on the head padded
+// to HDP, the next multiple of 8: the staging copies the HD real columns
+// of q, k and v (16-, 8- or 4-byte cp.async, the largest that divides a
+// head's slice of a row, since h * HD floats is only 8-byte aligned at
+// hd 6 and 10) and zeroes the HDP - HD others in shared memory. Zero
+// columns add nothing to q . k^T; P . v computes HDP output columns and
+// the store drops the padding ones (HD is even, so a lane's column pair
+// is kept or dropped whole). Rows stay HDP + 4 floats (f32) or the bf16
+// pitch below, so the fragment loads keep their 32 distinct banks. At
+// hd 4 half of every m16n8k8 tile multiplies zeros: these instances are
+// simple, not tuned (PERF.md section 6 has their times).
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,6 +110,27 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
+}
+
+// cp.async of BYTES = 4, 8 or 16 (.cg takes only 16; .ca the others).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+  if constexpr (BYTES == 16) {
+    cp_async16(smem_dst, src);
+  } else {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem_dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES));
+  }
+}
+
+// Elements a staging copy moves: the largest of MAX, MAX / 2 and MAX / 4
+// (MAX = the elements of 16 bytes) that divides HD, since a head's slice
+// starts h * HD elements into a 16-byte aligned row.
+template <int HD, int MAX>
+constexpr int chunk_elems() {
+  return HD % MAX == 0 ? MAX : HD % (MAX / 2) == 0 ? MAX / 2 : MAX / 4;
 }
 
 // 3xTF32: x = big + small, both TF32 (10-bit mantissas), so that
@@ -139,9 +173,12 @@ template <int WS, int HD>
 struct Geometry {
   static constexpr int N = WS * WS;
   static constexpr int TEAM = 2 * N;  // N / 16 warps
-  static constexpr int QP = HD + 4;
+  static constexpr int HDP = (HD + 7) / 8 * 8;  // the head padded to tiles
+  static constexpr int QP = HDP + 4;
   static constexpr int FLOATS = 3 * N * QP;
-  static_assert(N % 16 == 0 && HD % 8 == 0, "m16n8k8 tiles");
+  static constexpr int CE = chunk_elems<HD, 4>();  // floats a staging copy
+  static_assert(N % 16 == 0, "m16n8k8 tiles");
+  static_assert(HD % 2 == 0 && CE >= 2, "even head widths (float2 stores)");
 };
 
 // One block per (window, head); grid x = window * nh + head.
@@ -153,8 +190,9 @@ window_attention_kernel(const float* __restrict__ qkv,
                         float* __restrict__ out, int H, int W, int C, int nh,
                         float scale) {
   using G = Geometry<WS, HD>;
-  constexpr int N = G::N, TEAM = G::TEAM, QP = G::QP, C4 = HD / 4;
-  constexpr int NT = N / 8, DT = HD / 8;  // 8-wide tiles of keys and of hd
+  constexpr int N = G::N, TEAM = G::TEAM, QP = G::QP, HDP = G::HDP;
+  constexpr int CE = G::CE, CH = HD / CE;  // copies a token
+  constexpr int NT = N / 8, DT = HDP / 8;  // 8-wide tiles of keys and of hd
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* ks = qs + N * QP;
@@ -173,15 +211,22 @@ window_attention_kernel(const float* __restrict__ qkv,
   auto pixel = [&](int n) { return (int64_t)(n / WS) * W + n % WS; };
 
   // stage q and k (one cp.async group), then v (a second one): per token
-  // hd/4 16-byte chunks each; S waits for the first group only
+  // hd / CE copies of CE floats each; S waits for the first group only.
+  // The padding columns [HD, HDP) are zeroed by plain stores
 #pragma unroll
   for (int which = 0; which < 3; ++which) {
-    for (int e = tid; e < N * C4; e += TEAM) {
-      const int n = e / C4, c = e - n * C4;
-      cp_async16(smem + which * N * QP + n * QP + 4 * c,
-                 base + pixel(n) * C3 + which * C + 4 * c);
+    for (int e = tid; e < N * CH; e += TEAM) {
+      const int n = e / CH, c = e - n * CH;
+      cp_async<4 * CE>(smem + which * N * QP + n * QP + CE * c,
+                       base + pixel(n) * C3 + which * C + CE * c);
     }
     if (which != 0) asm volatile("cp.async.commit_group;\n" ::);
+  }
+  if constexpr (HDP != HD) {
+    for (int e = tid; e < 3 * N * (HDP - HD); e += TEAM) {
+      const int row = e / (HDP - HD);
+      smem[row * QP + HD + (e - row * (HDP - HD))] = 0.f;
+    }
   }
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
@@ -196,7 +241,7 @@ window_attention_kernel(const float* __restrict__ qkv,
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
+  for (int kk = 0; kk < DT; ++kk) {
     uint32_t ab[4], as[4];
     const float* q0 = qs + r0 * QP + 8 * kk + t;
     split_tf32(q0[0], ab[0], as[0]);
@@ -300,11 +345,13 @@ window_attention_kernel(const float* __restrict__ qkv,
   }
 
   // o[d][0..1] are row r0, o[d][2..3] row r0 + 8, channels 8d + 2t + {0, 1}:
-  // each lane quad writes one 32-byte sector of a row
+  // each lane quad writes one 32-byte sector of a row; padding channels
+  // (8d + 2t >= HD) are not stored
   float* obase = out + ((int64_t)b * H + wp * WS) * W * C
                  + (int64_t)wq * WS * C + h * HD + 2 * t;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
+    if (HDP != HD && 8 * d + 2 * t >= HD) continue;
     *(float2*)(obase + pixel(r0) * C + 8 * d) = make_float2(o[d][0], o[d][1]);
     *(float2*)(obase + pixel(r0 + 8) * C + 8 * d) =
         make_float2(o[d][2], o[d][3]);
@@ -369,9 +416,12 @@ template <int WS, int HD>
 struct Bf16Geometry {
   static constexpr int N = WS * WS;
   static constexpr int TEAM = 2 * N;  // N / 16 warps
-  static constexpr int QP = ((HD / 8) % 2 == 1) ? HD : HD + 8;
+  static constexpr int HDP = (HD + 7) / 8 * 8;  // the head padded to tiles
+  static constexpr int QP = ((HDP / 8) % 2 == 1) ? HDP : HDP + 8;
   static constexpr int ELEMS = 3 * N * QP;
-  static_assert(N % 16 == 0 && HD % 8 == 0, "m16n8k8 tiles");
+  static constexpr int CE = chunk_elems<HD, 8>();  // bf16s a staging copy
+  static_assert(N % 16 == 0, "m16n8k8 tiles");
+  static_assert(HD % 2 == 0 && CE >= 2, "even head widths (bf16 pairs)");
 };
 
 __device__ __forceinline__ float bf16_bits_lo(uint32_t w) {
@@ -423,8 +473,9 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
                              __nv_bfloat16* __restrict__ out, int H, int W,
                              int C, int nh, float scale) {
   using G = Bf16Geometry<WS, HD>;
-  constexpr int N = G::N, TEAM = G::TEAM, QP = G::QP, C8 = HD / 8;
-  constexpr int NT = N / 8, DT = HD / 8;
+  constexpr int N = G::N, TEAM = G::TEAM, QP = G::QP, HDP = G::HDP;
+  constexpr int CE = G::CE, CH = HD / CE;  // copies a token
+  constexpr int NT = N / 8, DT = HDP / 8;
   extern __shared__ __align__(16) __nv_bfloat16 bsmem[];
   __nv_bfloat16* qs = bsmem;
   __nv_bfloat16* ks = qs + N * QP;
@@ -442,16 +493,22 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
                               + (int64_t)wq * WS * C3 + h * HD;
   auto pixel = [&](int n) { return (int64_t)(n / WS) * W + n % WS; };
 
-  // q and k in one cp.async group, v in a second: hd / 8 16-byte chunks
-  // a token
+  // q and k in one cp.async group, v in a second: hd / CE copies of CE
+  // bf16s a token; the padding columns [HD, HDP) zeroed by plain stores
 #pragma unroll
   for (int which = 0; which < 3; ++which) {
-    for (int e = tid; e < N * C8; e += TEAM) {
-      const int n = e / C8, c = e - n * C8;
-      cp_async16(bsmem + which * N * QP + n * QP + 8 * c,
-                 base + pixel(n) * C3 + which * C + 8 * c);
+    for (int e = tid; e < N * CH; e += TEAM) {
+      const int n = e / CH, c = e - n * CH;
+      cp_async<2 * CE>(bsmem + which * N * QP + n * QP + CE * c,
+                       base + pixel(n) * C3 + which * C + CE * c);
     }
     if (which != 0) asm volatile("cp.async.commit_group;\n" ::);
+  }
+  if constexpr (HDP != HD) {
+    for (int e = tid; e < 3 * N * (HDP - HD); e += TEAM) {
+      const int row = e / (HDP - HD);
+      bsmem[row * QP + HD + (e - row * (HDP - HD))] = __float2bfloat16(0.f);
+    }
   }
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
@@ -474,7 +531,7 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
       return pack_bf16x2(bf16_bits_lo(w) * scale, bf16_bits_hi(w) * scale);
     };
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
       const int c0 = 16 * kk + 2 * t;
       const uint32_t a[4] = {qpair(r0, c0), qpair(r0 + 8, c0),
                              qpair(r0, c0 + 8), qpair(r0 + 8, c0 + 8)};
@@ -484,8 +541,8 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
         mma_bf16_k16(s[n], a, k32[(kr + c0) / 2], k32[(kr + c0 + 8) / 2]);
       }
     }
-    if constexpr (HD % 16 != 0) {
-      const int c0 = HD - 8 + 2 * t;
+    if constexpr (HDP % 16 != 0) {
+      const int c0 = HDP - 8 + 2 * t;
       const uint32_t a0 = qpair(r0, c0), a1 = qpair(r0 + 8, c0);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -495,7 +552,7 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
     // the f32 kernel's TF32 tiles on the converted values: a bf16 value
     // is exact in TF32, so one mma a tile
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) {
+    for (int kk = 0; kk < DT; ++kk) {
       const __nv_bfloat16* q0 = qs + r0 * QP + 8 * kk + t;
       const uint32_t a[4] = {
           __float_as_uint(scaled_bf16(bf16_at(q0), scale)),
@@ -628,11 +685,13 @@ window_attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
   }
 
-  // rows r0 and r0 + 8, channels 8d + 2t + {0, 1}, as bf16 pairs
+  // rows r0 and r0 + 8, channels 8d + 2t + {0, 1}, as bf16 pairs; padding
+  // channels (8d + 2t >= HD) are not stored
   __nv_bfloat16* obase = out + ((int64_t)b * H + wp * WS) * W * C
                          + (int64_t)wq * WS * C + h * HD + 2 * t;
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
+    if (HDP != HD && 8 * d + 2 * t >= HD) continue;
     *reinterpret_cast<__nv_bfloat162*>(obase + pixel(r0) * C + 8 * d) =
         __floats2bfloat162_rn(o[d][0], o[d][1]);
     *reinterpret_cast<__nv_bfloat162*>(obase + pixel(r0 + 8) * C + 8 * d) =
@@ -653,19 +712,33 @@ int launch_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* bias,
   return (int)cudaGetLastError();
 }
 
+// The compiled (window, head width, __launch_bounds__ minimum blocks)
+// instances, f32 and bf16 alike: WACNN's 8x8 windows at head width 24
+// and 4x4 at 40; STF's and DYSTF's 4x4 at 16; TBC's 8x8 at 4, 6, 8 and 10
+// (32 heads over widths 128-320) and 4x4 at 6 (its hyper stacks, 32
+// heads over 192). Any other geometry is refused (cudaErrorInvalidValue).
+#define STF_INSTANCES(X) \
+  X(8, 24, 6)            \
+  X(4, 40, 8)            \
+  X(4, 16, 32)           \
+  X(8, 4, 6)             \
+  X(8, 6, 6)             \
+  X(8, 8, 6)             \
+  X(8, 10, 6)            \
+  X(4, 6, 32)
+
 template <bool BMMA>
 int launch_bf16_geometry(const __nv_bfloat16* q, const __nv_bfloat16* bs,
                          const int32_t* lb, __nv_bfloat16* o, int B, int H,
                          int W, int ws, int C, int nh, float scale,
                          cudaStream_t st) {
   const int n = ws * ws, hd = C / nh;
-  if (n == 64 && hd == 24)
-    return launch_bf16<8, 24, 6, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale, st);
-  if (n == 16 && hd == 40)
-    return launch_bf16<4, 40, 8, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale, st);
-  if (n == 16 && hd == 16)
-    return launch_bf16<4, 16, 32, BMMA>(q, bs, lb, o, B, H, W, C, nh, scale,
-                                        st);
+#define STF_BF16(WS_, HD_, MINB_)                                            \
+  if (n == WS_ * WS_ && hd == HD_)                                           \
+    return launch_bf16<WS_, HD_, MINB_, BMMA>(q, bs, lb, o, B, H, W, C, nh,  \
+                                              scale, st);
+  STF_INSTANCES(STF_BF16)
+#undef STF_BF16
   return (int)cudaErrorInvalidValue;
 }
 
@@ -673,14 +746,15 @@ int launch_bf16_geometry(const __nv_bfloat16* q, const __nv_bfloat16* bs,
 
 extern "C" {
 
-// 1 when (N, hd) has a compiled instance, else 0: WACNN's two geometries,
-// 8x8 windows at head width 24 and 4x4 windows at head width 40, and
-// STF's, 4x4 windows at head width 16. Each instance unrolls its tiles
-// fully and costs build time, so only shapes a ported model runs are
-// compiled.
+// 1 when (N, hd) has a compiled instance, else 0 (`STF_INSTANCES`). Each
+// instance unrolls its tiles fully and costs build time, so only shapes a
+// ported model runs are compiled.
 int stf_window_attention_supported(int32_t n, int32_t hd) {
-  return (n == 64 && hd == 24) || (n == 16 && hd == 40) ||
-         (n == 16 && hd == 16);
+#define STF_HAS(WS_, HD_, MINB_) \
+  if (n == WS_ * WS_ && hd == HD_) return 1;
+  STF_INSTANCES(STF_HAS)
+#undef STF_HAS
+  return 0;
 }
 
 // qkv: (B, H, W, 3C) f32; bias: (nh, N, N) f32; labels: (nW, N) int32 or
@@ -699,12 +773,11 @@ int stf_window_attention(const void* qkv, const void* bias,
   if ((uintptr_t)qkv % 16 || (uintptr_t)out % 16 || (uintptr_t)bias % 8)
     return (int)cudaErrorInvalidValue;
   const int n = ws * ws, hd = C / nh;
-  if (n == 64 && hd == 24)
-    return launch<8, 24, 6>(q, bs, lb, o, B, H, W, C, nh, scale, st);
-  if (n == 16 && hd == 40)
-    return launch<4, 40, 8>(q, bs, lb, o, B, H, W, C, nh, scale, st);
-  if (n == 16 && hd == 16)
-    return launch<4, 16, 32>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+#define STF_F32(WS_, HD_, MINB_)    \
+  if (n == WS_ * WS_ && hd == HD_) \
+    return launch<WS_, HD_, MINB_>(q, bs, lb, o, B, H, W, C, nh, scale, st);
+  STF_INSTANCES(STF_F32)
+#undef STF_F32
   return (int)cudaErrorInvalidValue;
 }
 

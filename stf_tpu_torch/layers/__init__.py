@@ -4,10 +4,12 @@ from .gdn import GDN
 from .swin import (
     BasicLayer,
     DropPath,
+    MergeFirstLayer,
     Mlp,
     PatchEmbed,
     PatchMerging,
     PatchSplit,
+    SplitLastLayer,
     SwinTransformerBlock,
     pixel_shuffle_nhwc,
 )
@@ -25,11 +27,13 @@ __all__ = [
     "BasicLayer",
     "DropPath",
     "GDN",
+    "MergeFirstLayer",
     "Mlp",
     "PatchEmbed",
     "PatchMerging",
     "PatchSplit",
     "ResidualUnit",
+    "SplitLastLayer",
     "SwinTransformerBlock",
     "WinBasedAttention",
     "WindowAttention",

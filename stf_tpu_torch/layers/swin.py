@@ -13,8 +13,9 @@ As in the JAX package, and unlike the reference torch Swin, a block pads
 its map up to window multiples after `norm1` and keeps its window and shift
 however small the map: the padded tokens pass the qkv projection (its bias
 included) and take part in the attention, and the shift-region labels are
-those of the padded size. `MergeFirstLayer` and `SplitLastLayer` (TBC's
-stages) are not ported yet.
+those of the padded size. `MergeFirstLayer` and `SplitLastLayer` are
+TBC's stages (`tbc.py:265-351` of the reference): a PatchMerging first,
+or a PatchSplit last, at the widths the stage is given.
 """
 
 from typing import Optional, Sequence
@@ -93,10 +94,11 @@ class SwinTransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, sampler=None):
+    def attend(self, x):
+        """The attention branch on an NHWC map: norm1, pad, roll, W-MSA,
+        roll back, crop (no residual)."""
         _, H, W, _ = x.shape
         ws, ss = self.window_size, self.shift_size
-        shortcut = x
         x = self.norm1(x)
         pad_b, pad_r = -H % ws, -W % ws
         if pad_b or pad_r:
@@ -110,19 +112,24 @@ class SwinTransformerBlock(nn.Module):
             x = torch.roll(x, shifts=(ss, ss), dims=(1, 2))
         if pad_b or pad_r:
             x = x[:, :H, :W, :]
-        x = shortcut + self.drop_path(x, sampler)
+        return x
+
+    def forward(self, x, sampler=None):
+        x = x + self.drop_path(self.attend(x), sampler)
         return x + self.drop_path(self.mlp(self.norm2(x)), sampler)
 
 
 class PatchMerging(nn.Module):
     """2x down: pad odd sizes, gather each 2x2 neighbourhood in the order
     (even,even), (odd,even), (even,odd), (odd,odd), LN(4C), then a Linear
-    to 2C with no bias (`stf.py:202-235`)."""
+    to `out_features` (2C by default) with no bias (`stf.py:202-235`; the
+    width TBC's stages choose, `tbc.py:203-237`)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, out_features: Optional[int] = None):
         super().__init__()
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = nn.Linear(4 * dim, out_features or 2 * dim,
+                                   bias=False)
 
     def forward(self, x):
         _, H, W, _ = x.shape
@@ -134,13 +141,15 @@ class PatchMerging(nn.Module):
 
 
 class PatchSplit(nn.Module):
-    """2x up: LN, a Linear to 4 * (C // 2) = 2C with no bias, then
-    depth-to-space in PixelShuffle's channel order (`stf.py:238-260`)."""
+    """2x up: LN, a Linear to 4 * `out_features` (C // 2 by default) with
+    no bias, then depth-to-space in PixelShuffle's channel order
+    (`stf.py:238-260`; TBC's widths, `tbc.py:240-263`)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, out_features: Optional[int] = None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.reduction = nn.Linear(dim, 4 * (dim // 2), bias=False)
+        self.reduction = nn.Linear(dim, 4 * (out_features or dim // 2),
+                                   bias=False)
 
     def forward(self, x):
         return pixel_shuffle_nhwc(self.reduction(self.norm(x)), 2)
@@ -165,6 +174,60 @@ class PatchEmbed(nn.Module):
         return self.norm(self.proj(x).permute(0, 2, 3, 1))
 
 
+def _blocks(dim: int, depth: int, num_heads: int, window_size: int,
+            mlp_ratio: float, drop_path: Sequence[float]) -> nn.ModuleList:
+    """`depth` Swin blocks, shift 0 and window_size // 2 alternating, block
+    i at drop-path rate drop_path[i] (0 past its end)."""
+    return nn.ModuleList(
+        SwinTransformerBlock(
+            dim, num_heads, window_size,
+            shift_size=0 if i % 2 == 0 else window_size // 2,
+            mlp_ratio=mlp_ratio,
+            drop_path=drop_path[i] if i < len(drop_path) else 0.0,
+        )
+        for i in range(depth)
+    )
+
+
+class MergeFirstLayer(nn.Module):
+    """TBC's analysis stage (`swin.py:174-201` of the JAX package): a
+    PatchMerging dim_in -> dim_out (2x down) named `downsample`, then
+    `depth` Swin blocks at dim_out."""
+
+    def __init__(self, dim_in: int, dim_out: int, depth: int,
+                 num_heads: int, window_size: int = 8,
+                 mlp_ratio: float = 4.0, drop_path: Sequence[float] = ()):
+        super().__init__()
+        self.downsample = PatchMerging(dim_in, dim_out)
+        self.blocks = _blocks(dim_out, depth, num_heads, window_size,
+                              mlp_ratio, drop_path)
+
+    def forward(self, x, sampler=None):
+        x = self.downsample(x)
+        for block in self.blocks:
+            x = block(x, sampler)
+        return x
+
+
+class SplitLastLayer(nn.Module):
+    """TBC's synthesis stage (`swin.py:204-231` of the JAX package):
+    `depth` Swin blocks at dim, then a PatchSplit dim -> dim_out (2x up),
+    named `downsample` as the reference names it."""
+
+    def __init__(self, dim: int, dim_out: int, depth: int, num_heads: int,
+                 window_size: int = 8, mlp_ratio: float = 4.0,
+                 drop_path: Sequence[float] = ()):
+        super().__init__()
+        self.blocks = _blocks(dim, depth, num_heads, window_size, mlp_ratio,
+                              drop_path)
+        self.downsample = PatchSplit(dim, dim_out)
+
+    def forward(self, x, sampler=None):
+        for block in self.blocks:
+            x = block(x, sampler)
+        return self.downsample(x)
+
+
 class BasicLayer(nn.Module):
     """One Swin stage (`stf.py:262-347`): `depth` blocks, shift 0 and
     window_size // 2 alternating, then `downsample`: PatchMerging for
@@ -176,15 +239,8 @@ class BasicLayer(nn.Module):
                  drop_path: Sequence[float] = (),
                  resample: Optional[str] = None):
         super().__init__()
-        self.blocks = nn.ModuleList(
-            SwinTransformerBlock(
-                dim, num_heads, window_size,
-                shift_size=0 if i % 2 == 0 else window_size // 2,
-                mlp_ratio=mlp_ratio,
-                drop_path=drop_path[i] if i < len(drop_path) else 0.0,
-            )
-            for i in range(depth)
-        )
+        self.blocks = _blocks(dim, depth, num_heads, window_size, mlp_ratio,
+                              drop_path)
         resamplers = {"merge": PatchMerging, "split": PatchSplit}
         if resample is not None and resample not in resamplers:
             raise ValueError(f"resample is 'merge', 'split' or None, not "

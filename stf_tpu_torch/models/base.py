@@ -24,18 +24,25 @@ import torch
 import torch.nn as nn
 
 from ..entropy import gaussian_build_indexes, gaussian_forward
-from ..layers.conv import conv3x3, subpel_conv3x3
+from ..layers.conv import conv, conv3x3, subpel_conv3x3
 from ..ops import ste_round
 
+_ACTIVATIONS = {"gelu": nn.GELU, "relu": nn.ReLU}
 
-def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int]):
-    """3x3 conv stack with a GELU between layers (none after the last);
-    convs sit at even Sequential indices like the reference's."""
+
+def conv_gelu_stack(channels: Sequence[int], strides: Sequence[int],
+                    kernel_sizes: Optional[Sequence[int]] = None,
+                    activation: str = "gelu"):
+    """Conv stack (3x3 unless `kernel_sizes` says otherwise, padding k//2)
+    with a GELU or ReLU between layers (none after the last); convs sit at
+    even Sequential indices like the reference's (`ConvGeluStack` of the
+    JAX package)."""
+    kernel_sizes = kernel_sizes or (3,) * len(strides)
     layers = []
-    for i, s in enumerate(strides):
-        layers.append(conv3x3(channels[i], channels[i + 1], stride=s))
+    for i, (k, s) in enumerate(zip(kernel_sizes, strides)):
+        layers.append(conv(channels[i], channels[i + 1], k, stride=s))
         if i < len(strides) - 1:
-            layers.append(nn.GELU())
+            layers.append(_ACTIVATIONS[activation]())
     return nn.Sequential(*layers)
 
 
@@ -211,18 +218,33 @@ class ChannelARModel(nn.Module):
         return torch.clamp(self.synthesis(y_hat), 0.0, 1.0)
 
 
+def slice_widths(M: int, num_slices: int):
+    """Each slice's channels: ceil(M / num_slices), the remainder on the
+    last (`ChannelARModel.slice_boundaries`)."""
+    w = -(-M // num_slices)
+    return [min(w * (i + 1), M) - min(w * i, M) for i in range(num_slices)]
+
+
+def slice_supports(M: int, num_slices: int, max_support: int):
+    """(each slice's width, the channels of its decoded support): slice i
+    conditions on the first min(i, max_support) slices (all i when
+    max_support < 0), at their own widths."""
+    widths = slice_widths(M, num_slices)
+    return widths, [sum(widths[:i if max_support < 0 else min(i, max_support)])
+                    for i in range(num_slices)]
+
+
 def make_slice_transforms(M: int, num_slices: int, max_support: int,
-                          hyper_ch: Optional[int] = None):
-    """(cc_mean, cc_scale, lrp) ModuleLists with the reference widths:
-    slice i's context is the `hyper_ch` (M by default) channels of the
-    hyper synthesis plus its decoded support (at most max_support slices
-    of M / num_slices); lrp also sees the slice itself."""
-    slice_ch = M // num_slices
-    n_support = [i if max_support < 0 else min(i, max_support)
-                 for i in range(num_slices)]
-    cc_in = [(hyper_ch or M) + slice_ch * k for k in n_support]
+                          hyper_ch: Optional[int] = None,
+                          stack=slice_transform):
+    """(cc_mean, cc_scale, lrp) ModuleLists of `stack(in, out)` with the
+    reference widths: slice i (`slice_supports`) sees the `hyper_ch` (M by
+    default) channels of the hyper synthesis plus its decoded support;
+    lrp also sees the slice itself."""
+    widths, support = slice_supports(M, num_slices, max_support)
+    ctx = [(hyper_ch or M) + s for s in support]
     return (
-        nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),
-        nn.ModuleList(slice_transform(c, slice_ch) for c in cc_in),
-        nn.ModuleList(slice_transform(c + slice_ch, slice_ch) for c in cc_in),
+        nn.ModuleList(stack(c, w) for c, w in zip(ctx, widths)),
+        nn.ModuleList(stack(c, w) for c, w in zip(ctx, widths)),
+        nn.ModuleList(stack(c + w, w) for c, w in zip(ctx, widths)),
     )

@@ -29,10 +29,12 @@ from .registry import models
 # last key components of buffers a reference state_dict holds that the port
 # rebuilds from the parameters: the entropy models' CDF tables and scale
 # table, LowerBound's and NonNegativeParametrizer's constants, the window
-# attention's relative-position index and shift mask
+# attention's relative-position index and shift mask; and CC_GD's gate
+# `score`s, the pruning loop's Taylor sums, which the eval model does not
+# hold
 _DERIVED = frozenset((
     "_quantized_cdf", "_offset", "_cdf_length", "scale_table", "bound",
-    "pedestal", "relative_position_index", "attn_mask",
+    "pedestal", "relative_position_index", "attn_mask", "score",
 ))
 
 
@@ -62,8 +64,9 @@ def load_checkpoint(path: str, model_name: Optional[str] = None,
         )
     if os.path.exists(path + ".deps.json"):
         raise NotImplementedError(
-            f"{path}: a pruned cc_gd checkpoint; cc_gd is not ported to "
-            "stf_tpu_torch yet"
+            f"{path}: a pruned cc_gd export (.deps.json); reading one comes "
+            "with train_gd's prune_export, ROADMAP A.8 (CC_GD(deps=...) "
+            "builds the pruned widths)"
         )
     kwargs = {}
     if os.path.exists(path + ".json"):

@@ -1,13 +1,14 @@
 """JAX/flax params -> port state_dict (the inverse of
-`stf_tpu/zoo/torch_import.py`, WACNN and STF rules so far).
+`stf_tpu/zoo/torch_import.py`, for all six registry models).
 
 The input is a nested dict of NumPy arrays under flax names, as
 ``jax.tree_util.tree_map(np.asarray, params)`` gives; the output is a
-state_dict for the port's `WACNN` or `SymmetricalTransFormer` (reference
-torch key names). Layouts are inverted leaf by leaf: conv HWIO -> OIHW,
+state_dict for the port's registry model of that name (reference torch
+key names). Layouts are inverted leaf by leaf: conv HWIO -> OIHW,
 transposed conv (spatially flipped HWIO) -> IOHW, dense (in, out) ->
 Linear (out, in), LayerNorm scale -> weight; "direct" leaves (GDN
-beta/gamma, bias tables, bottleneck parameters) pass through.
+beta/gamma, bias tables, bottleneck parameters) pass through, and CC_GD's
+gates and masks go from (C,) to the reference's (1, C, 1, 1).
 
 `strip_prefixes` is the reference's `load_pretrained` key clean-up, so a
 reference `.pth.tar` state_dict loads into the port with
@@ -112,15 +113,8 @@ def _hyper_synthesis_rules(name: str):
     ]
 
 
-def _shared_rules():
-    """The hyper, slice-transform and bottleneck rules of every
-    ChannelARModel."""
-    rules = [(r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv")]
-    rules += _hyper_synthesis_rules("h_mean_s")
-    rules += _hyper_synthesis_rules("h_scale_s")
-    rules.append((r"(cc_mean|cc_scale|lrp)_(\d+)/stack/conv_(\d)/Conv_0",
-                  r"\1_transforms.\2.SEQTIMES2", "conv"))
-    rules += [
+def _bottleneck_rules():
+    return [
         (r"entropy_bottleneck/matrix_(\d)", r"entropy_bottleneck._matrix\1",
          "direct"),
         (r"entropy_bottleneck/bias_(\d)", r"entropy_bottleneck._bias\1",
@@ -130,7 +124,20 @@ def _shared_rules():
         (r"entropy_bottleneck/quantiles", r"entropy_bottleneck.quantiles",
          "direct"),
     ]
-    return rules
+
+
+def _slice_stack_rules():
+    return [(r"(cc_mean|cc_scale|lrp)_(\d+)/stack/conv_(\d)/Conv_0",
+             r"\1_transforms.\2.SEQTIMES2", "conv")]
+
+
+def _shared_rules():
+    """The hyper, slice-transform and bottleneck rules of WACNN, STF and
+    DYSTF."""
+    rules = [(r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv")]
+    rules += _hyper_synthesis_rules("h_mean_s")
+    rules += _hyper_synthesis_rules("h_scale_s")
+    return rules + _slice_stack_rules() + _bottleneck_rules()
 
 
 def wacnn_rules():
@@ -190,7 +197,111 @@ def stf_rules():
     return rules + _shared_rules()
 
 
-_RULES = {"cnn": wacnn_rules, "stf": stf_rules}
+def dystf_rules():
+    """STF's rules plus DYSTF's PredictorLG scorers (`in_conv` = LN,
+    Linear, GELU; `out_conv` = Linear, GELU, Linear, GELU, Linear, ...)
+    and the routed blocks' `fastmlp.fc1` (LN, Linear)."""
+    p = r"layer_(\d)/predictor_(\d)"
+    t = r"layers.\1.score_predictor.\2"
+    return stf_rules() + [
+        (rf"{p}/in_norm", rf"{t}.in_conv.0", "ln"),
+        (rf"{p}/in_fc", rf"{t}.in_conv.1", "dense"),
+        (rf"{p}/out_fc1", rf"{t}.out_conv.0", "dense"),
+        (rf"{p}/out_fc2", rf"{t}.out_conv.2", "dense"),
+        (rf"{p}/out_fc3", rf"{t}.out_conv.4", "dense"),
+        (r"layer_(\d)/block_(\d)/fastmlp/norm",
+         r"layers.\1.blocks.\2.fastmlp.fc1.0", "ln"),
+        (r"layer_(\d)/block_(\d)/fastmlp/fc1",
+         r"layers.\1.blocks.\2.fastmlp.fc1.1", "dense"),
+    ]
+
+
+def _swin_stage_rules(f: str, t: str, resample: str):
+    """One stack of TBC's Swin stages: flax `<f>/stage_i/{block_j,
+    downsample|upsample}` to torch `<t>.i.{blocks.j, downsample}` (the
+    reference names PatchSplit `downsample` too)."""
+    return [
+        (rf"{f}/stage_(\d)/{resample}/norm", rf"{t}.\1.downsample.norm", "ln"),
+        (rf"{f}/stage_(\d)/{resample}/reduction",
+         rf"{t}.\1.downsample.reduction", "dense"),
+        (rf"{f}/stage_(\d)/block_(\d)/norm([12])",
+         rf"{t}.\1.blocks.\2.norm\3", "ln"),
+        (rf"{f}/stage_(\d)/block_(\d)/attn/(qkv|proj)",
+         rf"{t}.\1.blocks.\2.attn.\3", "dense"),
+        (rf"{f}/stage_(\d)/block_(\d)/attn/relative_position_bias_table",
+         rf"{t}.\1.blocks.\2.attn.relative_position_bias_table", "direct"),
+        (rf"{f}/stage_(\d)/block_(\d)/mlp/(fc[12])",
+         rf"{t}.\1.blocks.\2.mlp.\3", "dense"),
+    ]
+
+
+def tbc_rules():
+    """TBC: merge-first `ana` -> `layers`, split-last `syn` ->
+    `syn_layers`, the transformer hyper stacks under their own names."""
+    rules = []
+    for f, t, resample in (("ana", "layers", "downsample"),
+                           ("syn", "syn_layers", "upsample"),
+                           ("h_a", "h_a", "downsample"),
+                           ("h_mean_s", "h_mean_s", "upsample"),
+                           ("h_scale_s", "h_scale_s", "upsample")):
+        rules += _swin_stage_rules(f, t, resample)
+    return rules + _slice_stack_rules() + _bottleneck_rules()
+
+
+def _cc_transform_rules():
+    """CC's and CC_GD's g_a / g_s: conv (deconv) i at Sequential 2i, GDN
+    (IGDN) i at 2i + 1."""
+    return [
+        (r"g_a/conv_(\d)/Conv_0", r"g_a.SEQTIMES2", "conv"),
+        (r"g_a/gdn_(\d)/(beta|gamma)", r"g_a.SEQ2IPLUS1.\2", "direct"),
+        (r"g_s/deconv_(\d)/ConvTranspose_0", r"g_s.SEQTIMES2", "deconv"),
+        (r"g_s/igdn_(\d)/(beta|gamma)", r"g_s.SEQ2IPLUS1.\2", "direct"),
+    ]
+
+
+def cc_rules():
+    """CC: conv/GDN g_a and g_s, ReLU hyper stacks (h_mean_s's two deconvs
+    and conv at .0, .2, .4), 3-conv slice stacks."""
+    return _cc_transform_rules() + [
+        (r"h_a/conv_(\d)/Conv_0", r"h_a.SEQTIMES2", "conv"),
+        (r"(h_mean_s|h_scale_s)/deconv_0/ConvTranspose_0", r"\1.0", "deconv"),
+        (r"(h_mean_s|h_scale_s)/deconv_1/ConvTranspose_0", r"\1.2", "deconv"),
+        (r"(h_mean_s|h_scale_s)/conv_0/Conv_0", r"\1.4", "conv"),
+    ] + _slice_stack_rules() + _bottleneck_rules()
+
+
+def cc_gd_rules():
+    """CC_GD: CC's g_a and g_s; in the hyper and slice stacks conv i at
+    Sequential 3i and its gate's `gate` and `mask` at 3i + 1 (kind "gate":
+    (C,) -> (1, C, 1, 1)). Holds for the ungated `deps` build too, whose
+    convs keep their positions."""
+    rules = _cc_transform_rules()
+    for i in range(3):
+        rules += [
+            (rf"h_a/conv_{i}/Conv_0", rf"h_a.{3 * i}", "conv"),
+            (rf"h_a/gate_{i}/(gate|mask)", rf"h_a.{3 * i + 1}.\1", "gate"),
+        ]
+    for i, (nm, inner, kind) in enumerate((
+        ("deconv_0", "ConvTranspose_0", "deconv"),
+        ("deconv_1", "ConvTranspose_0", "deconv"),
+        ("conv_2", "Conv_0", "conv"),
+    )):
+        rules += [
+            (rf"(h_mean_s|h_scale_s)/{nm}/{inner}", rf"\1.{3 * i}", kind),
+            (rf"(h_mean_s|h_scale_s)/gate_{i}/(gate|mask)",
+             rf"\1.{3 * i + 1}.\2", "gate"),
+        ]
+    for j in range(3):
+        rules.append((rf"(cc_mean|cc_scale|lrp)_(\d+)/conv_{j}/Conv_0",
+                      rf"\1_transforms.\2.{3 * j}", "conv"))
+    for j in range(2):
+        rules.append((rf"(cc_mean|cc_scale|lrp)_(\d+)/gate_{j}/(gate|mask)",
+                      rf"\1_transforms.\2.{3 * j + 1}.\3", "gate"))
+    return rules + _bottleneck_rules()
+
+
+_RULES = {"cnn": wacnn_rules, "stf": stf_rules, "tbc": tbc_rules,
+          "dystf": dystf_rules, "cc": cc_rules, "cc_gd": cc_gd_rules}
 
 
 def _translate(rules, path: Tuple[str, ...]):
@@ -203,11 +314,14 @@ def _translate(rules, path: Tuple[str, ...]):
 
 
 def _fix_key(key: str, path_joined: str) -> str:
-    """Template placeholders: SEQTIMES2 (conv_i -> seq 2*i), PLUS1
-    (residual unit index shift)."""
+    """Template placeholders: SEQTIMES2 (conv_i -> seq 2*i), SEQ2IPLUS1
+    (gdn_i -> seq 2*i + 1), PLUS1 (residual unit index shift)."""
     if "SEQTIMES2" in key:
         m = re.search(r"conv_(\d)", path_joined)
         key = key.replace("SEQTIMES2", str(2 * int(m.group(1))))
+    if "SEQ2IPLUS1" in key:
+        m = re.search(r"i?gdn_(\d)", path_joined)
+        key = key.replace("SEQ2IPLUS1", str(2 * int(m.group(1)) + 1))
     m = re.search(r"(\d)PLUS1", key)
     if m:
         key = key.replace(m.group(0), str(int(m.group(1)) + 1))
@@ -215,9 +329,9 @@ def _fix_key(key: str, path_joined: str) -> str:
 
 
 def state_dict_from_jax(params, model: str = "cnn") -> Dict[str, torch.Tensor]:
-    """flax params (nested dict of arrays) of registry model `model` ("cnn"
-    or "stf") -> port state_dict. Raises KeyError for a leaf no rule
-    maps."""
+    """flax params (nested dict of arrays) of registry model `model` (any
+    of the six names) -> port state_dict. Raises KeyError for a leaf no
+    rule maps."""
     rules = _RULES[model]()
     flat = {}
 
@@ -232,6 +346,8 @@ def state_dict_from_jax(params, model: str = "cnn") -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in flat.items():
         key, kind = _translate(rules, path)
+        if kind == "gate":
+            leaf = leaf.reshape(1, -1, 1, 1)
         if key is None:
             base, kind = _translate(rules, path[:-1])
             if base is None or kind == "direct":

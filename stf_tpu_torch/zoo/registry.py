@@ -1,11 +1,19 @@
-"""Model registry (port of `stf_tpu/zoo/registry.py`; "cnn" and "stf" so
-far)."""
+"""Model registry (port of `stf_tpu/zoo/registry.py`): the reference CLI's
+six names, cnn, stf, tbc, dystf, cc and cc_gd."""
 
 from typing import Optional
 
 import torch
 
-from ..models import WACNN, SymmetricalTransFormer, init_weights
+from ..models import (
+    CC,
+    CC_GD,
+    DYSTF,
+    WACNN,
+    SymmetricalTransFormer,
+    TransformerBasedCoding,
+    init_weights,
+)
 
 
 class _Models(dict):
@@ -15,7 +23,14 @@ class _Models(dict):
         )
 
 
-models = _Models(cnn=WACNN, stf=SymmetricalTransFormer)
+models = _Models(
+    cnn=WACNN,
+    stf=SymmetricalTransFormer,
+    tbc=TransformerBasedCoding,
+    dystf=DYSTF,
+    cc=CC,
+    cc_gd=CC_GD,
+)
 
 
 def create_model(name: str, seed: Optional[int] = None, **kwargs):

@@ -12,10 +12,8 @@ from stf_tpu.models import SymmetricalTransFormer as JaxSTF
 from stf_tpu_torch.models import init_weights
 from stf_tpu_torch.zoo import models
 
-from _torch_port import SMALL, STF_SMALL, smooth_images
+from _torch_port import CONFIGS, smooth_images
 from _torch_scale import he_scale
-
-CONFIGS = {"cnn": SMALL, "stf": STF_SMALL}
 # the host coder's metrics against the JAX CLI's (bpp is compared for
 # equality): the same integers, x_hat from f32 transforms within 1e-4
 HOST_TOL = {"psnr": 1e-4, "ms-ssim": 1e-5}

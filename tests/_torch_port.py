@@ -1,52 +1,84 @@
 """Shared set-up for the PyTorch-port parity tests (tests/test_torch_*.py):
-a small JAX model and the port's at the same weights (WACNN or STF)."""
+a small JAX model and the port's at the same weights, for each of the six
+registry names."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from stf_tpu.models import WACNN as JaxWACNN
 from stf_tpu.models import SymmetricalTransFormer as JaxSTF
+from stf_tpu.models.cc import CC as JaxCC
+from stf_tpu.models.cc_gd import CC_GD as JaxCC_GD
+from stf_tpu.models.dystf import DYSTF as JaxDYSTF
+from stf_tpu.models.tbc import TransformerBasedCoding as JaxTBC
 from stf_tpu.zoo.torch_import import import_state_dict
-from stf_tpu_torch.models import WACNN, SymmetricalTransFormer, init_weights
+from stf_tpu_torch.models import (
+    CC,
+    CC_GD,
+    DYSTF,
+    WACNN,
+    SymmetricalTransFormer,
+    TransformerBasedCoding,
+    init_weights,
+)
 
+from _torch_configs import (  # noqa: F401 (re-exported)
+    CONFIGS,
+    DYSTF_SMALL,
+    SMALL,
+    STF_SMALL,
+    TBC_SMALL,
+)
 from _torch_scale import he_scale
+from _torch_threads import one_torch_thread  # noqa: F401 (re-exported)
 
-# the size tests/test_lane_codec.py uses
-SMALL = dict(N=32, M=40, num_slices=4, max_support_slices=2)
-# a small STF at the full model's head width 16 (B1's stf geometry):
-# stages of 16, 32, 64 and 128 channels, y of 128 in 4 slices of 32
-STF_SMALL = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
-                 num_slices=4)
-_MODELS = {"cnn": (WACNN, JaxWACNN, SMALL),
-           "stf": (SymmetricalTransFormer, JaxSTF, STF_SMALL)}
+_MODELS = {"cnn": (WACNN, JaxWACNN), "stf": (SymmetricalTransFormer, JaxSTF),
+           "tbc": (TransformerBasedCoding, JaxTBC), "cc": (CC, JaxCC),
+           "cc_gd": (CC_GD, JaxCC_GD), "dystf": (DYSTF, JaxDYSTF)}
+
+
+def jax_template(model, size: int = 64):
+    """Zeros of the flax params of `model`, shaped by `jax.eval_shape` of
+    its init at a size x size input (flax's init itself costs tens of
+    CPU-seconds at these sizes)."""
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.key(0), "noise": jax.random.key(1)},
+        jnp.zeros((1, size, size, 3), jnp.float32), training=False,
+    ))["params"]
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+
+
+def to_jax(name: str, port, model=None, **kwargs):
+    """(flax model, params) holding the port model's weights: `model` (the
+    JAX `name` class at CONFIGS[name] and `kwargs` by default) and its
+    template filled through the JAX package's `import_state_dict`."""
+    if model is None:
+        model = _MODELS[name][1](**{**CONFIGS[name], **kwargs})
+    params = import_state_dict(name, jax_template(model), {
+        k: v.detach().numpy() for k, v in port.state_dict().items()
+    })
+    return model, params
+
+
+def port_small(seed: int = 0, name: str = "cnn"):
+    """The port's small `name` model with weights drawn by `init_weights`
+    from a seeded generator and scaled by `_torch_scale.he_scale`
+    (He-normal size, the synthesis at half, LayerNorms moved off 1 and 0),
+    in eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    port = init_weights(_MODELS[name][0](**CONFIGS[name]), gen)
+    return he_scale(port, gen, name).eval()
 
 
 def pair_from_port(seed: int = 0, name: str = "cnn"):
-    """(flax model, params, port model): the port's small `name` model
-    ("cnn" or "stf") with weights drawn by `init_weights` from a seeded
-    generator and scaled by `_torch_scale.he_scale` (He-normal size, the
-    synthesis at half, LayerNorms moved off 1 and 0), and the same
-    weights as flax params. The flax template comes from
+    """(flax model, params, port model): `port_small(seed, name)` and the
+    same weights as flax params (`to_jax`). The flax template comes from
     `jax.eval_shape`, which skips the ~70 s CPU cost of running flax's
     init."""
-    port_cls, jax_cls, cfg = _MODELS[name]
-    gen = torch.Generator().manual_seed(seed)
-    port = he_scale(init_weights(port_cls(**cfg), gen), gen, name)
-    model = jax_cls(**cfg)
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.key(0), "noise": jax.random.key(1)},
-        jnp.zeros((1, 64, 64, 3), jnp.float32), training=False,
-    ))["params"]
-    template = jax.tree_util.tree_map(
-        lambda s: np.zeros(s.shape, s.dtype), shapes
-    )
-    params = import_state_dict(name, template, {
-        k: v.detach().numpy() for k, v in port.state_dict().items()
-    })
-    return model, params, port.eval()
+    port = port_small(seed, name)
+    return (*to_jax(name, port), port)
 
 
 def flat_leaves(tree, prefix=()):
@@ -92,15 +124,3 @@ def jax_walk_indexes(jcodec, x):
 
     jcodec._walk_slices(lm, ls, get_symbols)
     return out
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread for a module that imports this fixture: under
-    the suite's parallel workers torch's default of a thread a core
-    oversubscribes the machine, and its small ops then wait on each
-    other's spinning threads (a train step ran ~45x slower than alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)

@@ -7,12 +7,14 @@ import torch
 from torch import nn
 
 # the synthesis transform of each model, scaled to half the others
-SYNTHESIS = {"cnn": ("g_s",), "stf": ("syn_layers", "end_conv")}
+SYNTHESIS = {"cnn": ("g_s",), "stf": ("syn_layers", "end_conv"),
+             "tbc": ("syn_layers",), "cc": ("g_s",), "cc_gd": ("g_s",),
+             "dystf": ("syn_layers", "end_conv")}
 
 
 def he_scale(port, gen, name: str):
-    """Scale the convs and linears of the port's `name` model ("cnn" or
-    "stf"), drawn by `init_weights`, in place to He-normal size (std
+    """Scale the convs and linears of the port's `name` model (a registry
+    name), drawn by `init_weights`, in place to He-normal size (std
     sqrt(2/fan_in), flax's conv init), and the synthesis's to half that;
     draw LayerNorm weights and biases from 1 + U(-0.5, 0.5) and
     U(-0.5, 0.5) with `gen`. Returns the model.
@@ -31,4 +33,21 @@ def he_scale(port, gen, name: str):
             elif isinstance(m, nn.LayerNorm):
                 m.weight.add_(torch.rand(m.weight.shape, generator=gen) - 0.5)
                 m.bias.add_(torch.rand(m.bias.shape, generator=gen) - 0.5)
+    return port
+
+
+def random_gates(port, seed: int):
+    """CC_GD's gates drawn from U(0.5, 1.5) and its masks from
+    Bernoulli(2/3) with a generator seeded `seed`, in place (at their init
+    of ones a gate or mask read from the wrong index would go unseen).
+    Returns the model."""
+    from stf_tpu_torch.models.cc_gd import GateDecorator
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in port.modules():
+            if isinstance(m, GateDecorator):
+                m.gate.copy_(torch.rand(m.gate.shape, generator=gen) + 0.5)
+                m.mask.copy_((torch.rand(m.mask.shape, generator=gen)
+                              < 2 / 3).float())
     return port

@@ -8,14 +8,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from stf_tpu.layers.pallas_attention import _reference_core, pallas_window_attention
 from stf_tpu.layers.win_attention import WindowAttention as JaxWindowAttention
 from stf_tpu.layers.win_attention import shifted_window_region_labels
 from stf_tpu_torch.layers import WindowAttention, window_attention
 
-# (window, head dim) of WACNN's two attention geometries and STF's one, 8
+# (window, head dim) of WACNN's two attention geometries, STF's one and
+# TBC's five (head widths that are not a multiple of 8 among them), 8
 # heads each
-GEOMETRIES = [(8, 24), (4, 40), (4, 16)]
+GEOMETRIES = [(8, 24), (4, 40), (4, 16), (8, 4), (8, 6), (8, 8), (8, 10),
+              (4, 6)]
 
 
 def _inputs(ws, hd, shifted, seed=0):

@@ -17,6 +17,11 @@ from stf_tpu_torch.layers import attention_core as ac
 
 pytestmark = pytest.mark.cuda
 
+# B1's compiled (window, head width) instances: WACNN's two, STF's, and
+# TBC's four 8x8 widths and its hyper stacks' 4x4 / hd 6
+B1_GEOMS = [(8, 24), (4, 40), (4, 16), (8, 4), (8, 6), (8, 8), (8, 10),
+            (4, 6)]
+
 
 @pytest.fixture
 def dev():
@@ -43,7 +48,7 @@ def _attn_inputs(dev, ws, hd, shifted, hw_windows=(2, 3), seed=0, batch=2,
 
 
 @pytest.mark.parametrize("shifted", [False, True])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+@pytest.mark.parametrize("ws,hd", B1_GEOMS)
 def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
     qkv, bias, labels = _attn_inputs(dev, ws, hd, shifted)
     before = _native.launch_counts[f"window_attention_ws{ws}_hd{hd}"]
@@ -59,7 +64,7 @@ def test_window_attention_kernel_matches_plain(dev, ws, hd, shifted):
 # version: each gradient within 1e-5 of the largest plain gradient (f32
 # products summed in other orders)
 @pytest.mark.parametrize("shifted", [False, True])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+@pytest.mark.parametrize("ws,hd", B1_GEOMS)
 def test_window_attention_gradients_match_plain(dev, ws, hd, shifted):
     qkv, bias, labels = _attn_inputs(dev, ws, hd, shifted, seed=3)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -95,7 +100,7 @@ def test_window_attention_gradients_match_plain(dev, ws, hd, shifted):
 # (2.4e-6 against 8.8e-6 at 8x8 on an H100, PERF.md section 6)
 @pytest.mark.parametrize("case", ["batch1", "one_window", "odd_windows",
                                   "bias_x30"])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+@pytest.mark.parametrize("ws,hd", B1_GEOMS)
 def test_window_attention_kernel_edge_cases(dev, ws, hd, case):
     kw = {"batch1": dict(batch=1), "one_window": dict(hw_windows=(1, 1)),
           "odd_windows": dict(hw_windows=(3, 5)),
@@ -138,7 +143,7 @@ def test_window_attention_rejects_bad_inputs(dev):
 # the largest output); both designs of the products, each deterministic
 @pytest.mark.parametrize("design", sorted(ac.BF16_DESIGNS))
 @pytest.mark.parametrize("shifted", [False, True])
-@pytest.mark.parametrize("ws,hd", [(8, 24), (4, 40), (4, 16)])
+@pytest.mark.parametrize("ws,hd", B1_GEOMS)
 def test_window_attention_bf16_kernel_matches_plain(dev, ws, hd, shifted,
                                                      design):
     from _bf16 import ulp_errors
@@ -859,6 +864,68 @@ def _small(name, he):
                                     num_heads=(1, 2, 4, 8), num_slices=4),
         gen)
     return he_scale(model, gen, name) if he else model
+
+
+# B1 launches of the small models (`_torch_configs.CONFIGS`) in a compress
+# and in a decompress: TBC's analysis 8 + h_a 3 + hyper synthesis 3 + 3,
+# then 6 + its synthesis's 8; DYSTF's 10 and 10; none for CC and CC_GD
+FAMILY_B1 = {"tbc": (17, 14), "dystf": (10, 10), "cc": (0, 0),
+             "cc_gd": (0, 0)}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_B1))
+def test_family_round_trip(dev, name):
+    """The small `name` model of the CPU tests (He scale; CC_GD with random
+    gates and masks) on the card: the full tier's first compress (capture
+    and self-check) and a replay give the per-slice stream from byte 1 on;
+    it decodes fused and per-slice, and the host coder round-trips, to the
+    same symbols with bit-equal x_hat; no demotion or hash fallback
+    (warnings are errors); B1 runs FAMILY_B1's launches a replay and a
+    fused decompress (TBC's at head widths 4, 6, 8 and 10 and 4x4 / 6)."""
+    import warnings
+
+    from _torch_configs import CONFIGS
+    from _torch_scale import he_scale, random_gates
+    from stf_tpu_torch.models import Codec, init_weights
+    from stf_tpu_torch.zoo import models
+
+    gen = torch.Generator().manual_seed(0)
+    model = he_scale(init_weights(models[name](**CONFIGS[name]), gen), gen,
+                     name)
+    if name == "cc_gd":
+        random_gates(model, 1)
+    x = _pattern(64, 128)
+    want = Codec(model, coder="lane", device=dev).compress(x)
+    lane = Codec(model, coder="lane", device=dev, fused_encode=True)
+    host = Codec(model, coder="host", device=dev)
+
+    def b1(before):
+        return sum(v for k, v in _lane_launches(before).items()
+                   if k.startswith("window_attention"))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        first = lane.compress(x)
+        before = dict(_native.launch_counts)
+        enc = lane.compress(x)
+        replay_b1 = b1(before)
+        before = dict(_native.launch_counts)
+        fused = lane.decompress(enc["strings"], enc["shape"])
+        fused_b1 = b1(before)
+        lane.fused = False
+        walk = lane.decompress(enc["strings"], enc["shape"])
+        henc = host.compress(x)
+        hdec = host.decompress(henc["strings"], henc["shape"])
+    y, y_want = enc["strings"][0][0], want["strings"][0][0]
+    assert first["strings"] == enc["strings"]
+    assert y[0] == y_want[0] | 1 and y[1:] == y_want[1:]
+    assert lane.fused_encode and lane._fused_mode == "full"
+    for s, f, w, h in zip(enc["symbols"], fused["symbols"], walk["symbols"],
+                          hdec["symbols"]):
+        assert torch.equal(f, s) and torch.equal(w, s) and torch.equal(h, s)
+    assert torch.equal(fused["x_hat"], walk["x_hat"])
+    assert torch.equal(hdec["x_hat"], fused["x_hat"])
+    assert (replay_b1, fused_b1) == FAMILY_B1[name]
 
 
 # the card's step against the CPU's (cuDNN's f32 convolutions, FFT and

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import stf_tpu.ans as jans
 from stf_tpu.entropy import EntropyBottleneck as JaxEntropyBottleneck
 from stf_tpu.entropy import build_eb_tables as jax_build_eb_tables

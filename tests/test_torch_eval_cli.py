@@ -24,6 +24,7 @@ from stf_tpu_torch.cli import prime_cache
 
 from _torch_cli import HOST_TOL, close, save_port_checkpoint, write_images
 from _torch_port import one_torch_thread, pair_from_port  # noqa: F401
+from _torch_port import port_small
 
 
 @pytest.fixture(scope="module")
@@ -110,9 +111,42 @@ def test_main_on_an_empty_folder_exits_1(tmp_path, capsys):
 
 def test_main_unknown_architecture_lists_the_names(images, pairs, tmp_path):
     ckpt = _ckpt(tmp_path, pairs)
-    with pytest.raises(KeyError, match="available: cnn, stf"):
+    with pytest.raises(KeyError,
+                       match="available: cc, cc_gd, cnn, dystf, stf, tbc"):
         cli.main(["-d", images, "-a", "nope", "-p", ckpt, "--device", "cpu",
                   "-r", str(tmp_path / "r")])
+
+
+@pytest.mark.parametrize("name", ["tbc", "cc", "cc_gd", "dystf"])
+def test_main_evaluates_the_other_families(images, tmp_path, capsys, name):
+    """`eval_model -a <name>` with the host coder on a checkpoint the
+    port saved (its small model at He scale) prints the JSON document,
+    finite metrics for the two checkpoints, and one reconstruction an
+    image at its size; `load_checkpoint` returns the saved weights."""
+    from PIL import Image
+
+    from stf_tpu_torch.zoo import load_checkpoint
+
+    port = port_small(5, name)
+    ckpt = save_port_checkpoint(tmp_path / f"{name}.pth.tar", port, name)
+    loaded = load_checkpoint(ckpt, device="cpu")
+    assert type(loaded) is type(port)
+    for k, v in port.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    recon = tmp_path / "recon"
+    cli.main(["-d", images, "-a", name, "-p", ckpt, "--backend", "host",
+              "-r", str(recon), "--device", "cpu"])
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["name"] == name and doc["description"] == "Inference (rans)"
+    res = doc["results"]
+    assert {"psnr", "ms-ssim", "bpp"} <= res.keys()
+    assert all(np.isfinite(v) for k in ("psnr", "ms-ssim", "bpp")
+               for v in np.ravel(res[k]))
+    assert 0 < np.ravel(res["bpp"])[0] < 64
+    for f in cli.collect_images(images):
+        x = cli.load_image(f)
+        with Image.open(recon / os.path.basename(f)) as im:
+            assert im.size == (x.shape[1], x.shape[0])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import _lane_stress as ls
 from stf_tpu.ans import lane_coder as jlc
 from stf_tpu.entropy import build_gc_tables as jax_build_gc_tables

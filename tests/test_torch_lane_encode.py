@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import _lane_stress as ls
 from stf_tpu.ans import lane_coder as jlc
 from stf_tpu_torch.ans import lane_coder as lc

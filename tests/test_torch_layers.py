@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from stf_tpu.layers import GDN as JaxGDN
 from stf_tpu.layers import Conv, ConvTranspose
 from stf_tpu.layers import Win_noShift_Attention as JaxWinNoShift

@@ -7,6 +7,7 @@ hands the kernel describes the same elements in the same order (a copy rebuilt f
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from stf_tpu_torch.ans import lane_coder as lc
 
 

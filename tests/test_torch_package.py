@@ -8,6 +8,8 @@ import sys
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "stf_tpu_torch")
 

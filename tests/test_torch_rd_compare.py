@@ -270,5 +270,6 @@ def test_msgpack_and_pruned_checkpoints_raise(tmp_path):
         load_checkpoint(str(tmp_path / "params.msgpack"), "cnn", device="cpu")
     path = tmp_path / "pruned.pth.tar"
     (tmp_path / "pruned.pth.tar.deps.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="cc_gd is not ported"):
+    with pytest.raises(NotImplementedError,
+                       match="comes with train_gd.s prune_export"):
         load_any_checkpoint(str(path), "cnn", device="cpu")

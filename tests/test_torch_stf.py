@@ -27,6 +27,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from _torch_port import jax_walk_indexes, pair_from_port, smooth_images
 from stf_tpu.models import Codec as JaxCodec
 from stf_tpu_torch.layers import swin
