@@ -102,10 +102,34 @@ Phases (any failure exits non-zero; nothing is caught):
      128x128x48 down to 16x16x384), its forward within ATTN_TOL of the
      plain version and its Function's d qkv and d bias, for the step's
      own output gradients, within ATTN_GRAD_TOL of autograd through the
-     plain version; and the trained model through the lane
-     (per-slice decompress) and host coders, symbols round-tripping and
-     x_hat bit-equal. This path's counts are set to 0 before its steps
-     and read after them.
+     plain version; and the trained model through the lane (fused and
+     per-slice decompress) and host coders (`codec_round_trip`, the
+     round trip of 7 and 8, which 12 and 13 share), symbols
+     round-tripping, x_hat bit-equal, each step's B1-B4 launches the
+     path's. This path's counts are set to 0 before its steps and read
+     after them;
+ 12. DYSTF distillation (`phase_dytrain`): the trained STF saved by the
+     zoo and read back with is_teacher (the --teacher-checkpoint route),
+     the full-width DYSTF student, 20 steps of `make_dytrain_step` at
+     8x256x256 (clf_weight 1): every loss part finite, B1 launched 24 +
+     24 times a step (the student's training forward, the teacher's eval
+     forward; the backward none), every student gradient finite and the
+     predictors' nonzero, the teacher bit-unchanged; keep shares against
+     their targets, the warm median step, one step's device time by kind
+     and B1's backward in it; B1 under autograd at one step's calls (the
+     routed blocks' merged tokens) against the plain version; the
+     distilled DYSTF through the lane (fused and per-slice) and host
+     coders, symbols round-tripping, x_hat bit-equal, each step's B1-B4
+     launches the path's; and `dytrain.main` for one epoch on the eval
+     phase's PNGs with --teacher-checkpoint;
+ 13. CC_GD gate-decorator pruning (`phase_train_gd`): the full-width
+     CC_GD, 5 tock steps, one tick of 2 rounds (param_scale falls, only
+     gates and masks move), `prune_export` with z's gate unmasked and
+     `zoo.load_checkpoint` of the export on the card: its eval forward
+     within 1e-5 of the gated model's, the lane and host round trips as in
+     12 (B2, B3, B4 launched), parameter counts and warm codec medians
+     beside the gated model's; then `eval_model.main -a cc_gd` on the
+     export. Each phase prints its wall seconds.
 
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
@@ -128,6 +152,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -203,6 +228,17 @@ ATTN_BF16_GEOMS = (
     ("tbc", (32, 48), 320, 8, 32, 2),
     ("tbc", (16, 24), 192, 4, 32, 2),
 )
+# the distillation phase: steps of TRAIN_BATCH x TRAIN_SIZE crops, the
+# CLI's keep ratios; B1 launches a step: the student's training forward
+# (analysis 12 + synthesis 12) and the frozen teacher's eval forward (STF's
+# 12 + 12); the backward launches none
+DYTRAIN_STEPS, DYTRAIN_LMBDA, DYTRAIN_KEEP = 20, 0.013, (0.9, 0.7, 0.5)
+DYTRAIN_B1 = 24 + 24
+# the pruning phase: tock steps, the CLI's sparse lambda, and one tick of
+# GD_ROUNDS rounds over GD_SUBSET batches, GD_TICK_NUM channels a round
+# (about 8% of the full-width CC_GD's 12,864 gated channels each)
+GD_STEPS, GD_LMBDA, GD_SPARSE = 5, 0.013, 1e-4
+GD_ROUNDS, GD_SUBSET, GD_TICK_NUM = 2, 2, 1000
 WARM_CALLS = 3  # warm calls a median of the batch-24 phase takes
 # the lift of the scale stacks' last bias (`smoke_model`) by family
 SCALE_LIFT = {"stf": 1.0, "dystf": 1.0}
@@ -924,25 +960,179 @@ def smoke_model(name):
     return model
 
 
-def phase_codec(dev, smi, name):
-    """A main path: the full-width registry model `name` (one of
-    CODEC_MODELS) through the lane coder (B3 encode, fused and per-slice
-    decompress), the host coder, and the two fused encode tiers' round
-    trips. Returns the kernel launches of the path."""
+def strict(fn, *a):
+    """fn(*a) with warnings as errors: a hash fallback or a tier's demotion
+    fails the smoke."""
     import warnings
 
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        return fn(*a)
+
+
+def timed(fn, *a):
+    """(fn(*a), its synchronised wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def warm_medians(fns, n=5):
+    """{name: median seconds of n synchronised calls}."""
+    import numpy as np
+
+    return {what: float(np.median([timed(fn)[1] for _ in range(n)]))
+            for what, fn in fns.items()}
+
+
+def per_slice_decompress(codec, enc):
+    """`codec`'s decompress of `enc` through the per-slice walk."""
+    codec.fused = False
+    try:
+        return codec.decompress(enc["strings"], enc["shape"])
+    finally:
+        codec.fused = True
+
+
+def b1_launches(d):
+    """B1's launches, all instances, in a launch-count dict."""
+    return sum(v for k, v in d.items() if k.startswith("window_attention"))
+
+
+class StepRecorder:
+    """Runs the steps of a path: each strict, timed, with the kernel
+    launches it made kept in `steps[step]` and its seconds in
+    `secs[step]`."""
+
+    def __init__(self):
+        self.steps, self.secs = {}, {}
+
+    def __call__(self, step, fn, *a):
+        from stf_tpu_torch import _native
+
+        counts = _native.launch_counts
+        snap = dict(counts)
+        out, self.secs[step] = timed(strict, fn, *a)
+        self.steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
+                            if v - snap.get(k, 0)}
+        return out
+
+
+FUSED_FIRST = "fused decompress, first: warm-up + capture + replay"
+FUSED = "fused decompress (replay)"
+PER_SLICE = "per-slice decompress"
+
+
+def codec_round_trip(tag, model, dev, x, b1_calls):
+    """`model` through the lane coder (B3 encode; fused decompress, its
+    first call and a replay; per-slice decompress) and the host coder on
+    the uint8 batch `x`, every step strict (`StepRecorder`): symbols round
+    trip, the four x_hat bit-equal, finite and of x's shape, and each
+    step's B1/B2/B3/B4 launches the path's (`b1_calls`: B1's launches in
+    a compress and in a decompress; the fused first call runs its walk
+    eagerly, then captures and replays it, so it counts twice), B4's by
+    path too. Counts are set to 0 before the path; `launches` is read
+    after it. Returns a namespace: launches, the recorder `run` (its steps
+    and secs), the lane codec, enc, the decodes first, fused, walk, and
+    the host coder's henc, hdec."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.models import Codec
+
+    counts = _native.launch_counts
+    lane = Codec(model, coder="lane", device=dev)
+    host = Codec(model, coder="host", device=dev)
+    S = model.num_slices
+    E, D = b1_calls
+    pins = 3 * S + 2  # B4 launches in a fused walk
+    run = StepRecorder()
+
+    counts.clear()  # the path starts here
+    enc = run("lane compress", lane.compress, x)
+    first = run(FUSED_FIRST, lane.decompress, enc["strings"], enc["shape"])
+    fused = run(FUSED, lane.decompress, enc["strings"], enc["shape"])
+    walk = run(PER_SLICE, per_slice_decompress, lane, enc)
+    henc = run("host compress", host.compress, x)
+    hdec = run("host decompress", host.decompress, henc["strings"],
+               henc["shape"])
+    launches = dict(counts)  # the path ends here
+    for what, d in (("fused first", first), ("fused", fused),
+                    ("per-slice", walk), ("host", hdec)):
+        ref = henc if what == "host" else enc
+        if not all(torch.equal(a, b) for a, b in zip(ref["symbols"],
+                                                    d["symbols"])):
+            raise AssertionError(f"{tag} {what}: decoded symbols differ")
+        if not torch.equal(d["x_hat"], hdec["x_hat"]):
+            raise AssertionError(f"{tag} {what}: x_hat is not bit-equal to "
+                                 "the host coder's")
+    if not all(torch.equal(a, b) for a, b in zip(enc["symbols"],
+                                                henc["symbols"])):
+        raise AssertionError(f"{tag}: lane and host quantized other symbols")
+    x_hat = hdec["x_hat"]
+    if x_hat.shape != tuple(x.shape) or not torch.isfinite(x_hat).all():
+        raise AssertionError(f"{tag}: x_hat {tuple(x_hat.shape)} or its "
+                             "values bad")
+    want = {"lane compress": (E, 0, S, 0),
+            FUSED_FIRST: (2 * D, 2 * S, 0, 2 * pins),
+            FUSED: (D, S, 0, pins),
+            PER_SLICE: (D, S, 0, 0),
+            "host compress": (E, 0, 0, 0), "host decompress": (D, 0, 0, 0)}
+    for step, expect in want.items():
+        d = run.steps[step]
+        got = (b1_launches(d), d.get("lane_decode", 0),
+               d.get("lane_encode", 0), d.get("layout_pin", 0))
+        if got != expect:
+            raise AssertionError(f"{tag} {step}: B1/B2/B3/B4 launches {got}, "
+                                 f"want {expect}")
+    # B4's 3S + 2 pins per fused walk by path: z_hat and the S rv are NHWC
+    # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
+    for step, reps in ((FUSED_FIRST, 2), (FUSED, 1)):
+        check_pins(tag, step, run.steps[step], reps, S)
+    print(f"{tag} through the lane coder (fused and per-slice decompress) "
+          f"and the host coder ({tuple(x.shape)}): symbols round trip, x_hat "
+          f"bit-equal, {enc['host_encoded']} of {S} B3 segments sent to the "
+          f"host encoder; B1/B2/B3/B4 launches as the path's: "
+          + "; ".join(f"{k} {v}" for k, v in want.items()))
+    return SimpleNamespace(launches=launches, run=run, lane=lane, enc=enc,
+                           first=first, fused=fused, walk=walk, henc=henc,
+                           hdec=hdec)
+
+
+def check_pins(tag, step, d, reps, S):
+    """B4's launches by path in `d`, a step of `reps` fused walks over S
+    slices: reps * (2S + 1) packed, reps * (S + 1) transposed."""
+    from stf_tpu_torch.ans import lane_coder as lc
+
+    got = {k: d.get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
+    want = {"packed": reps * (2 * S + 1), "transpose": reps * (S + 1),
+            "general": 0}
+    print(f"{tag}: B4 pins by path in {step}: {got}")
+    if got != want:
+        raise AssertionError(f"{tag} {step}: B4 pins by path {got}, want "
+                             f"{want}")
+
+
+def phase_codec(dev, smi, name):
+    """A main path: the full-width registry model `name` (one of
+    CODEC_MODELS) through `codec_round_trip` (lane coder: B3 encode, fused
+    and per-slice decompress; host coder), then the two fused encode
+    tiers' round trips on top. Returns the kernel launches of the path."""
     import numpy as np
     import torch
 
     from stf_tpu_torch import _native
-    from stf_tpu_torch.ans import lane_coder as lc
     from stf_tpu_torch.models import Codec
     from stf_tpu_torch.utils import psnr
 
     x = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round().astype(np.uint8)
     model = smoke_model(name)
-    lane = Codec(model, coder="lane", device=dev)
-    host = Codec(model, coder="host", device=dev)
     tiers = {"full": Codec(model, coder="lane", device=dev, fused_encode=True),
              "split": Codec(model, coder="lane", device=dev,
                             fused_encode="split")}
@@ -954,90 +1144,35 @@ def phase_codec(dev, smi, name):
     E, D = an + hy, hy + sy
     pins = 3 * S + 2  # B4 launches in a fused walk
 
-    def timed(fn, *a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def per_slice_decompress(enc):
-        lane.fused = False
-        try:
-            return lane.decompress(enc["strings"], enc["shape"])
-        finally:
-            lane.fused = True
-
-    def strict(fn, *a):
-        with warnings.catch_warnings():
-            # a hash fallback or a tier's demotion fails the smoke
-            warnings.simplefilter("error")
-            return fn(*a)
-
-    def fused_strict(enc, codec=lane):
-        return strict(codec.decompress, enc["strings"], enc["shape"])
-
-    steps, secs = {}, {}
-
-    def run(step, fn, *a):
-        """fn(*a) timed, with the kernel launches it made recorded."""
-        snap = dict(counts)
-        result, secs[step] = timed(fn, *a)
-        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
-                       if v - snap.get(k, 0)}
-        return result
-
-    first, fused, per_slice = (
-        "lane decompress (fused, first: warm-up + capture + replay)",
-        "fused decompress (replay)",
-        "per-slice decompress",
-    )
-    counts.clear()  # this model's main path starts here
-    enc = run("lane compress", lane.compress, x)
-    dec = run(first, fused_strict, enc)
-    henc = run("host compress", host.compress, x)
-    hdec = run("host decompress", host.decompress, henc["strings"], henc["shape"])
-    fdec = run(fused, fused_strict, enc)
-    wdec = run(per_slice, per_slice_decompress, enc)
+    # this model's main path starts here: the round trip sets the counts to 0
+    rt = codec_round_trip(name, model, dev, x, (E, D))
+    lane, enc, run = rt.lane, rt.enc, rt.run
     tier_steps = {}
     for tier, codec in tiers.items():
         steps_of = (f"{tier}-tier compress, first: warm-up + capture + replay "
                     "+ self-check", f"{tier}-tier compress (replay)",
                     f"fused decompress of the {tier}-tier stream (replay)")
-        first_enc = run(steps_of[0], strict, codec.compress, x)
-        tenc = run(steps_of[1], strict, codec.compress, x)
-        tdec = run(steps_of[2], fused_strict, tenc, codec)
+        first_enc = run(steps_of[0], codec.compress, x)
+        tenc = run(steps_of[1], codec.compress, x)
+        tdec = run(steps_of[2], codec.decompress, tenc["strings"],
+                   tenc["shape"])
         tier_steps[tier] = steps_of, first_enc, tenc, tdec
     launches = dict(counts)  # this model's main path ends here
-    for step, d in steps.items():
+    for step, d in run.steps.items():
         print(f"{name}: launches in {step}: {d}")
 
-    for what, d in (("lane fused", dec), ("lane per-slice", wdec), ("fused", fdec)):
-        for i, (s, got) in enumerate(zip(enc["symbols"], d["symbols"])):
-            if not torch.equal(s, got):
-                raise AssertionError(f"{name} {what}: slice {i} decoded "
-                                     "symbols differ")
-    for i, (s, d) in enumerate(zip(henc["symbols"], hdec["symbols"])):
-        if not torch.equal(s, d):
-            raise AssertionError(f"{name} host: slice {i} decoded symbols differ")
-    if not all(torch.equal(a, b) for a, b in zip(enc["symbols"], henc["symbols"])):
-        raise AssertionError(f"{name}: lane and host walks quantized different symbols")
     t0 = time.perf_counter()
     if enc["strings"][0][0] != host_lane_stream(lane, enc):
         raise AssertionError(f"{name}: B3-encoded y-stream differs from the host lane encoder's")
     host_lane_s = time.perf_counter() - t0
-    if henc["strings"][1] != enc["strings"][1]:
+    if rt.henc["strings"][1] != enc["strings"][1]:
         raise AssertionError(f"{name}: lane and host codecs wrote different z strings")
     if enc["host_encoded"] == S:
         raise AssertionError(f"{name}: every B3-encoded segment overflowed to the host")
-    for what, d in (("lane fused", dec), ("fused", fdec), ("per-slice", wdec)):
-        if not torch.equal(d["x_hat"], hdec["x_hat"]):
-            raise AssertionError(f"{name} {what} x_hat is not bit-equal to the "
-                                 "host coder's")
     if len(lane._graphs) != 1:
         raise AssertionError(f"{name}: {len(lane._graphs)} fused graphs for one geometry")
     y_want = enc["strings"][0][0]
-    for tier, ((_, step, _), first_enc, tenc, tdec) in tier_steps.items():
+    for tier, (_, first_enc, tenc, tdec) in tier_steps.items():
         codec = tiers[tier]
         if codec._fused_mode != tier or not codec.fused_encode:
             raise AssertionError(f"{name} {tier} tier demoted to {codec._fused_mode} "
@@ -1056,14 +1191,12 @@ def phase_codec(dev, smi, name):
                        zip(e["symbols"] + e["indexes"],
                            enc["symbols"] + enc["indexes"])):
                 raise AssertionError(f"{name} {tier} tier: symbols or indexes differ")
-        if not torch.equal(tdec["x_hat"], dec["x_hat"]):
+        if not torch.equal(tdec["x_hat"], rt.first["x_hat"]):
             raise AssertionError(f"{name} {tier} tier: decoded x_hat differs")
         if len(codec._enc_graphs) != 1 or len(codec._graphs) != 1:
             raise AssertionError(f"{name} {tier} tier: {len(codec._enc_graphs)} encode "
                                  f"and {len(codec._graphs)} decode graphs")
-    x_hat = dec["x_hat"]
-    if x_hat.shape != (BATCH, HEIGHT, WIDTH, 3) or not torch.isfinite(x_hat).all():
-        raise AssertionError(f"{name}: x_hat shape {tuple(x_hat.shape)} or values bad")
+    x_hat = rt.first["x_hat"]
     # the decoded image against the model's own eval forward on x
     xf = torch.from_numpy(x).to(dev).float() / 255.0
     with torch.inference_mode():
@@ -1072,24 +1205,15 @@ def phase_codec(dev, smi, name):
     if not fwd_err <= 1e-3:
         raise AssertionError(f"{name}: codec x_hat vs eval forward: {fwd_err}")
 
-    def b1(d):
-        return sum(v for k, v in d.items() if k.startswith("window_attention"))
-
-    # (step, B1, B2, B3, B4) launches each step must show. A tier's first
-    # compress runs its walk eagerly (warm-up), captures it (counts taken
-    # back) and replays it, then its self-check's fused decompress does the
-    # same (B1 E + E and D + D, B2 S + S, B4 pins + pins); the split tier's
-    # analysis and hyper synthesis run eagerly once a call (B1 E). Neither
-    # tier's walk pins.
+    # (step, B1, B2, B3, B4) launches each tier step must show. A tier's
+    # first compress runs its walk eagerly (warm-up), captures it (counts
+    # taken back) and replays it, then its self-check's fused decompress
+    # does the same (B1 E + E and D + D, B2 S + S, B4 pins + pins); the
+    # split tier's analysis and hyper synthesis run eagerly once a call
+    # (B1 E). Neither tier's walk pins.
     (full_first, full_replay, full_dec), _, _, _ = tier_steps["full"]
     (split_first, split_replay, split_dec), _, _, _ = tier_steps["split"]
     want = (
-        ("lane compress", E, 0, S, 0),
-        (first, 2 * D, 2 * S, 0, 2 * pins),
-        ("host compress", E, 0, 0, 0),
-        ("host decompress", D, 0, 0, 0),
-        (fused, D, S, 0, pins),
-        (per_slice, D, S, 0, 0),
         (full_first, 2 * E + 2 * D, 2 * S, 2 * S, 2 * pins),
         (full_replay, E, 0, S, 0),
         (full_dec, D, S, 0, pins),
@@ -1098,29 +1222,20 @@ def phase_codec(dev, smi, name):
         (split_dec, D, S, 0, pins),
     )
     for step, *expect in want:
-        d = steps[step]
-        got = [b1(d), d.get("lane_decode", 0), d.get("lane_encode", 0),
-               d.get("layout_pin", 0)]
+        d = run.steps[step]
+        got = [b1_launches(d), d.get("lane_decode", 0),
+               d.get("lane_encode", 0), d.get("layout_pin", 0)]
         if got != expect:
             raise AssertionError(f"{name} {step}: B1/B2/B3/B4 launches {got}, "
                                  f"want {expect}")
-    # B4's 3S + 2 pins per fused walk by path: z_hat and the S rv are NHWC
-    # views (transpose); lm, ls, every mu and the S - 1 y_prev are packed
-    # (the tiers' stream decodes and self-checks likewise)
-    for step, reps in (
-        (first, 2), (fused, 1), (full_first, 2), (full_dec, 1),
-        (split_first, 2), (split_dec, 1),
-    ):
-        got = {k: steps[step].get(f"layout_pin_{k}", 0) for k in lc.PIN_KINDS}
-        want = {"packed": reps * (2 * S + 1),
-                "transpose": reps * (S + 1), "general": 0}
-        print(f"{name}: B4 pins by path in {step}: {got}")
-        if got != want:
-            raise AssertionError(f"{name} {step}: B4 pins by path {got}, "
-                                 f"want {want}")
+    # the tiers' stream decodes and self-checks pin as a fused walk does
+    for step, reps in ((full_first, 2), (full_dec, 1), (split_first, 2),
+                       (split_dec, 1)):
+        check_pins(name, step, run.steps[step], reps, S)
 
     pixels = BATCH * HEIGHT * WIDTH
     lane_bytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
+    henc = rt.henc
     host_bytes = sum(map(len, henc["strings"][0])) + sum(map(len, henc["strings"][1]))
     p = psnr(x_hat, xf).item()
     print(f"{name} codec (seed weights, not an operating point): "
@@ -1131,25 +1246,25 @@ def phase_codec(dev, smi, name):
           f"encoder's (which took {host_lane_s:.3f} s); eval-forward max diff "
           f"{fwd_err:.3g}")
     print(f"{name} first calls: "
-          + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+          + "; ".join(f"{k} {v:.3f} s" for k, v in run.secs.items()))
     # warm per-call times, medians of 5
-    warm = {}
-    calls = (
-        ("lane compress (B3, per-slice walk)", lambda: lane.compress(x)),
-        ("full-tier compress", lambda: strict(tiers["full"].compress, x)),
-        ("split-tier compress", lambda: strict(tiers["split"].compress, x)),
-        ("fused decompress", lambda: fused_strict(enc)),
-        ("per-slice decompress", lambda: per_slice_decompress(enc)),
-    )
-    for what, fn in calls:
-        warm[what] = float(np.median([timed(fn)[1] for _ in range(5)]))
+    calls = {
+        "lane compress (B3, per-slice walk)": lambda: lane.compress(x),
+        "full-tier compress": lambda: strict(tiers["full"].compress, x),
+        "split-tier compress": lambda: strict(tiers["split"].compress, x),
+        "fused decompress": lambda: strict(lane.decompress, enc["strings"],
+                                           enc["shape"]),
+        "per-slice decompress": lambda: per_slice_decompress(lane, enc),
+    }
+    warm = warm_medians(calls)
     print(f"{name} warm per call, median of 5 ({smi}): "
           + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
     # device-busy share of one warm call each, in a profiler window of its
     # own (the first window, untimed, pays the tracer's start-up)
-    profile_call(calls[0][1], "tracer start-up")
+    profiled = list(calls.items())[:3]
+    profile_call(profiled[0][1], "tracer start-up")
     shares = []
-    for what, fn in calls[:3]:
+    for what, fn in profiled:
         wall, busy, _ = profile_call(fn, what)
         shares.append(f"{what} {wall * 1e3:.3f} ms wall, device busy "
                       f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%)")
@@ -1226,8 +1341,6 @@ def phase_tbc_bf16(dev, smi):
     B1's launches a compress and a decompress by instance are the
     stages' block counts. Prints the PSNR against the f32 codec. Returns
     the path's kernel launches."""
-    import warnings
-
     import numpy as np
     import torch
 
@@ -1242,31 +1355,14 @@ def phase_tbc_bf16(dev, smi):
     tier = Codec(model, coder="lane", fused_encode=True, **bf16)
     per_slice = Codec(model, coder="lane", **bf16)
     counts = _native.launch_counts
-    steps = {}
-
-    def run(step, fn, *a):
-        snap = dict(counts)
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            out = fn(*a)
-        torch.cuda.synchronize()
-        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
-                       if v - snap.get(k, 0)}
-        return out
-
-    def walk_decompress(enc):
-        tier.fused = False
-        try:
-            return tier.decompress(enc["strings"], enc["shape"])
-        finally:
-            tier.fused = True
+    run = StepRecorder()
+    steps = run.steps
 
     counts.clear()  # this path starts here
     first = run("full-tier compress, first", tier.compress, x)
     enc = run("full-tier compress (replay)", tier.compress, x)
-    dec = run("fused decompress (replay)", tier.decompress, enc["strings"],
-              enc["shape"])
-    wdec = run("per-slice decompress", walk_decompress, enc)
+    dec = run(FUSED, tier.decompress, enc["strings"], enc["shape"])
+    wdec = run(PER_SLICE, per_slice_decompress, tier, enc)
     launches = dict(counts)  # this path ends here
     want = run("per-slice compress", per_slice.compress, x)
     for step, d in steps.items():
@@ -1295,8 +1391,7 @@ def phase_tbc_bf16(dev, smi):
     decompress = {f32_key(g): n for g, n in analysis.items()}
     decompress[f32_key((4, 6))] = 12
     for step, expect in (("full-tier compress (replay)", compress),
-                         ("fused decompress (replay)", decompress),
-                         ("per-slice decompress", decompress)):
+                         (FUSED, decompress), (PER_SLICE, decompress)):
         got = {k: v for k, v in steps[step].items()
                if k.startswith("window_attention")}
         if got != expect:
@@ -1329,8 +1424,6 @@ def phase_codec_bf16(dev, smi, name):
     call by instance (bf16 in the analysis, f32 in the synthesis), and the
     PSNR of the bf16 x_hat against the f32 codec's at the same weights.
     Returns the path's kernel launches."""
-    import warnings
-
     import numpy as np
     import torch
 
@@ -1356,33 +1449,8 @@ def phase_codec_bf16(dev, smi, name):
     pins = 1 + P * (3 * S + 1)  # B4 launches in a fused walk
     mode = "full" if opts["fused_encode"] is True else "split"
 
-    def strict(fn, *a):
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            return fn(*a)
-
-    def timed(fn, *a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def walk_decompress(enc):
-        tier.fused = False
-        try:
-            return tier.decompress(enc["strings"], enc["shape"])
-        finally:
-            tier.fused = True
-
-    steps, secs = {}, {}
-
-    def run(step, fn, *a):
-        snap = dict(counts)
-        result, secs[step] = timed(strict, fn, *a)
-        steps[step] = {k: v - snap.get(k, 0) for k, v in counts.items()
-                       if v - snap.get(k, 0)}
-        return result
+    run = StepRecorder()
+    steps, secs = run.steps, run.secs
 
     first_step, replay_step = (f"{mode}-tier compress, first", f"{mode}-tier "
                                "compress (replay)")
@@ -1390,9 +1458,8 @@ def phase_codec_bf16(dev, smi, name):
     counts.clear()  # this path starts here
     first = run(first_step, tier.compress, x)
     enc = run(replay_step, tier.compress, x)
-    dec = run("fused decompress (replay)", tier.decompress, enc["strings"],
-              enc["shape"])
-    wdec = run("per-slice decompress", walk_decompress, enc)
+    dec = run(FUSED, tier.decompress, enc["strings"], enc["shape"])
+    wdec = run(PER_SLICE, per_slice_decompress, tier, enc)
     henc = run("host compress", host.compress, x)
     hdec = run("host decompress", host.decompress, henc["strings"],
                henc["shape"])
@@ -1438,8 +1505,8 @@ def phase_codec_bf16(dev, smi, name):
     expect = (
         (first_step, first_b1, 2 * A, 2 * S * P, 2 * S * P, 2 * pins),
         (replay_step, A, 0, 0, S * P, 0),
-        ("fused decompress (replay)", 0, A, S * P, 0, pins),
-        ("per-slice decompress", 0, A, S * P, 0, 0),
+        (FUSED, 0, A, S * P, 0, pins),
+        (PER_SLICE, 0, A, S * P, 0, 0),
         ("host compress", A, 0, 0, 0, 0),
         ("host decompress", 0, A, 0, 0, 0),
     )
@@ -1457,23 +1524,20 @@ def phase_codec_bf16(dev, smi, name):
     print(f"{name} bf16 first calls: "
           + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
     for what, step in (("compress", replay_step),
-                       ("decompress", "fused decompress (replay)")):
+                       ("decompress", FUSED)):
         b1_calls = {k: v for k, v in steps[step].items()
                     if k.startswith("window_attention")}
         print(f"{name} bf16: B1 launches a {what} by instance {b1_calls} "
               f"(bf16 {b1(b1_calls, True)}, f32 {b1(b1_calls, False)})")
 
-    warm = {}
-    calls = (
-        (f"{mode}-tier compress", lambda: strict(tier.compress, x)),
-        ("fused decompress",
-         lambda: strict(tier.decompress, enc["strings"], enc["shape"])),
-    )
-    for what, fn in calls:
-        warm[what] = float(np.median([timed(fn)[1]
-                                      for _ in range(WARM_CALLS)]))
+    calls = {
+        f"{mode}-tier compress": lambda: strict(tier.compress, x),
+        "fused decompress":
+            lambda: strict(tier.decompress, enc["strings"], enc["shape"]),
+    }
+    warm = warm_medians(calls, WARM_CALLS)
     shares = []
-    for what, fn in calls:
+    for what, fn in calls.items():
         wall, busy, _ = profile_call(fn, what)
         shares.append(f"{what} {wall * 1e3:.1f} ms wall, device busy "
                       f"{busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%)")
@@ -1518,10 +1582,31 @@ BENCH_FLAGS = {
 HALF_PSNR_TOL = 0.05  # dB, the --half run against the f32 host run
 
 
-def phase_eval_cli(dev, smi):
+def kodak_pngs(root):
+    """Kodak's layout as PNGs in root/kodak: the 24 images of
+    smooth_batch(24, 512, 768, seed=999), 16 at 512x768 and 8 transposed
+    to 768x512. Returns (the folder, {file name: (width, height)})."""
+    import numpy as np
+    from PIL import Image
+
+    x = (smooth_batch(BENCH_BATCH, HEIGHT, WIDTH, BENCH_SEED) * 255).astype(
+        np.uint8)
+    images = os.path.join(root, "kodak")
+    os.makedirs(images)
+    sizes = {}
+    for i, img in enumerate(x):
+        if i >= 16:
+            img = img.transpose(1, 0, 2)
+        name = f"kodim{i + 1:02d}.png"
+        Image.fromarray(np.ascontiguousarray(img)).save(
+            os.path.join(images, name))
+        sizes[name] = (img.shape[1], img.shape[0])
+    return images, sizes
+
+
+def phase_eval_cli(dev, smi, images, sizes):
     """The port's eval CLI (`stf_tpu_torch.cli.eval_model.main`) on
-    Kodak's layout: the 24 images of smooth_batch(24, 512, 768,
-    seed=999) as PNGs, 16 at 512x768 and 8 transposed to 768x512. For
+    Kodak's layout (`kodak_pngs`: `images`, the files' `sizes`). For
     each full-width model (`smoke_model`, saved with the port's
     `save_checkpoint`): (a) --backend host at batch 1 in f32 (the
     reference's contract, per-image streams), the lane coder at batch 1
@@ -1542,29 +1627,15 @@ def phase_eval_cli(dev, smi):
     import tempfile
     import warnings
 
-    import numpy as np
     from PIL import Image
 
     from stf_tpu_torch import _native
     from stf_tpu_torch.cli import eval_model, prime_cache
     from stf_tpu_torch.zoo import save_checkpoint
 
-    x = (smooth_batch(BENCH_BATCH, HEIGHT, WIDTH, BENCH_SEED) * 255).astype(
-        np.uint8)
     counts = _native.launch_counts
     launches = collections.Counter()
     with tempfile.TemporaryDirectory(prefix="eval_cli_") as tmp:
-        images = os.path.join(tmp, "kodak")
-        os.makedirs(images)
-        sizes = {}
-        for i, img in enumerate(x):
-            if i >= 16:
-                img = img.transpose(1, 0, 2)
-            name = f"kodim{i + 1:02d}.png"
-            Image.fromarray(np.ascontiguousarray(img)).save(
-                os.path.join(images, name))
-            sizes[name] = (img.shape[1], img.shape[0])
-
         def run(tag, model_name, ckpt, flags, estimation=False):
             recon = os.path.join(tmp, f"recon_{model_name}_{tag}")
             argv = ["-d", images, "-a", model_name, "-p", ckpt, "-r", recon,
@@ -1722,17 +1793,13 @@ def phase_train(dev, smi, name):
     forward and gradients, against the plain version at its shapes and
     data; prints B1's backward's device time at those shapes and one
     warm step's device time by kernel; and codes
-    two images with the trained model through the lane coder (per-slice
-    decompress) and the host coder (symbols equal, x_hat bit-equal)."""
+    two images with the trained model through `codec_round_trip`."""
     import tempfile
-    import warnings
 
     import numpy as np
     import torch
 
     from stf_tpu_torch import _native
-    from stf_tpu_torch.layers import attention_core as ac
-    from stf_tpu_torch.models import Codec
     from stf_tpu_torch.training import TrainState, make_train_step
     from stf_tpu_torch.training.checkpoint import (
         restore_checkpoint,
@@ -1825,20 +1892,44 @@ def phase_train(dev, smi, name):
     print(f"{name} checkpoint after step {state.step}: model, both optimizers, "
           "schedule, generator and step restored equal")
 
+    # B1 at the step's own shapes and data, and its backward's device time
     x = batches[-1]
-    # B1's backward alone at this step's shapes: record one step's calls,
-    # then time each by graph replays
+    bwd_ms, n_calls = b1_step_check(f"{name} train step", step, state, x)
+    print(f"{name} train step: B1's backward (PyTorch ops) {bwd_ms:.3f} ms "
+          f"of device time in {n_calls} calls (graph replays at the step's "
+          f"shapes; {smi})")
+    device_time_by_kind(f"{name} warm train step", lambda: step(state, x), smi)
+
+    img = (smooth_batch(2, TRAIN_SIZE, TRAIN_SIZE, SEED + 7) * 255).round()
+    img = img.astype(np.uint8)
+    an, hy, sy = B1_CALLS[name]
+    rt = codec_round_trip(f"{name} trained", model, dev, img,
+                          (an + hy, hy + sy))
+    pixels = 2 * TRAIN_SIZE * TRAIN_SIZE
+    nbytes = sum(map(len, rt.enc["strings"][0])) + sum(
+        map(len, rt.enc["strings"][1]))
+    xf = torch.from_numpy(img).to(dev).float() / 255.0
+    print(f"{name} trained {state.step} steps through the codec "
+          f"(2x{TRAIN_SIZE}x{TRAIN_SIZE}): lane {nbytes * 8 / pixels:.4f} bpp, "
+          f"PSNR {psnr(rt.hdec['x_hat'], xf).item():.3f} dB")
+    return model
+
+
+def b1_step_check(tag, step, state, x):
+    """Record one step's B1 backward calls (the saved qkv, bias, labels and
+    the output gradient), then hold B1 at each against the plain version:
+    the forward within ATTN_TOL (over max(1, largest output)) and the
+    Function's d qkv, d bias within ATTN_GRAD_TOL of autograd through the
+    plain version. Returns the backward's device ms at those calls (graph
+    replays) and the number of calls."""
+    from stf_tpu_torch.layers import attention_core as ac
+
     calls, backward = [], ac.window_attention_backward
     ac.window_attention_backward = lambda *a: calls.append(a) or backward(*a)
     try:
         step(state, x)
     finally:
         ac.window_attention_backward = backward
-    # B1 at the step's own shapes and data: for each recorded call, the
-    # kernel against the plain version (max abs error over the larger of
-    # 1 and the largest plain output, within ATTN_TOL) and the Function's
-    # gradients for the step's output gradient against autograd through
-    # the plain version (within ATTN_GRAD_TOL, as in phase 3)
     worst = {}
     for qkv, bias, labels, ws, scale, gout in calls:
         out = ac._launch(qkv, bias, labels, ws, scale)
@@ -1848,71 +1939,326 @@ def phase_train(dev, smi, name):
         errs += attention_grad_errors(qkv, bias, labels, ws, scale, gout)
         if not (errs[0] <= ATTN_TOL and max(errs[1:]) <= ATTN_GRAD_TOL):
             raise AssertionError(
-                f"{name} train step: B1 at qkv {tuple(qkv.shape)} (shift "
-                f"labels: {labels is not None}): forward, d qkv, d bias "
-                f"errors {errs}")
+                f"{tag}: B1 at qkv {tuple(qkv.shape)} (shift labels: "
+                f"{labels is not None}): forward, d qkv, d bias errors {errs}")
         key = tuple(qkv.shape)
         worst[key] = [max(a, b) for a, b in zip(worst.get(key, errs), errs)]
-    print(f"{name} train step: B1 at the step's {len(calls)} calls against "
-          f"the plain version (forward over max(1, largest output), tolerance "
-          f"{ATTN_TOL:g}; d qkv, d bias over the largest plain gradient, "
+    print(f"{tag}: B1 at the step's {len(calls)} calls under autograd against "
+          f"the plain version (forward tolerance {ATTN_TOL:g}; d qkv, d bias "
           f"{ATTN_GRAD_TOL:g}), worst by qkv shape: " + "; ".join(
               f"{k} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
               for k, e in sorted(worst.items(), key=lambda kv: -kv[0][1])))
     bwd_ms = sum(graph_ms(lambda a=a: backward(*a), 3) for a in calls)
-    print(f"{name} train step: B1's backward (PyTorch ops) {bwd_ms:.3f} ms "
-          f"of device time in {len(calls)} calls (graph replays at the "
-          f"step's shapes; {smi})")
-    del calls
-    profile_call(lambda: step(state, x), "tracer start-up")
-    wall, busy, events = profile_call(lambda: step(state, x), "train step")
+    return bwd_ms, len(calls)
+
+
+def device_time_by_kind(tag, fn, smi):
+    """One warm call of `fn` in a profiler window of its own (after an
+    untimed window that pays the tracer's start-up): prints its wall and
+    busy time, its 14 costliest kernels, its device time by kernel kind
+    (`kernel_group`) and the device spans of its record_function ranges;
+    returns the busy ms."""
+    profile_call(fn, "tracer start-up")
+    wall, busy, events = profile_call(fn, tag)
     kernels = sorted((e for e in events if not is_range(e)), key=_device_us,
                      reverse=True)
-    print(f"{name} profiled warm train step ({smi}): {wall * 1e3:.3f} ms wall, "
-          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%); by "
-          "kernel: " + "; ".join(
-              f"{e.key[:70]} {_device_us(e) / 1e3:.3f} ms in {e.count}"
-              for e in kernels[:14]))
+    print(f"{tag} profiled ({smi}): {wall * 1e3:.3f} ms wall, device busy "
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%); by kernel: "
+          + "; ".join(f"{e.key[:70]} {_device_us(e) / 1e3:.3f} ms in {e.count}"
+                      for e in kernels[:14]))
     groups = {}
     for e in kernels:
         kind = kernel_group(e.key)
         groups[kind] = groups.get(kind, 0.0) + _device_us(e)
     spans = {e.key: (_device_us(e), e.count) for e in events if is_range(e)}
-    print(f"{name} train step device time by kind: " + "; ".join(
+    print(f"{tag} device time by kind: " + "; ".join(
         f"{k} {v / 1e3:.3f} ms ({100 * v / 1e6 / busy:.1f}%)"
         for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
         + "; ranges (device span, overlapping the kernels above): "
         + "; ".join(f"{k} {us / 1e3:.3f} ms in {n}"
                     for k, (us, n) in sorted(spans.items())))
+    return busy * 1e3
 
-    img = (smooth_batch(2, TRAIN_SIZE, TRAIN_SIZE, SEED + 7) * 255).round()
-    img = img.astype(np.uint8)
-    lane = Codec(model, coder="lane", device=dev)
-    host = Codec(model, coder="host", device=dev)
-    lane.fused = False
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        enc = lane.compress(img)
-        dec = lane.decompress(enc["strings"], enc["shape"])
-        henc = host.compress(img)
-        hdec = host.decompress(henc["strings"], henc["shape"])
-    for what, e, d_ in (("lane", enc, dec), ("host", henc, hdec)):
-        if not all(torch.equal(a, b) for a, b in zip(e["symbols"], d_["symbols"])):
-            raise AssertionError(f"{name} trained {what}: decoded symbols differ")
-    if not torch.equal(dec["x_hat"], hdec["x_hat"]):
-        raise AssertionError(f"{name} trained: lane x_hat is not bit-equal to "
-                             "the host coder's")
-    x_hat = dec["x_hat"]
-    if x_hat.shape != (2, TRAIN_SIZE, TRAIN_SIZE, 3) or not torch.isfinite(x_hat).all():
-        raise AssertionError(f"{name} trained: x_hat {tuple(x_hat.shape)} bad")
-    pixels = 2 * TRAIN_SIZE * TRAIN_SIZE
-    nbytes = sum(map(len, enc["strings"][0])) + sum(map(len, enc["strings"][1]))
+
+def training_folder(root, images, n_test=8):
+    """An ImageFolder root over the Kodak PNGs: train/ links every image,
+    test/ the first n_test."""
+    data = os.path.join(root, "kodak_folder")
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(data, split))
+    for i, name in enumerate(sorted(os.listdir(images))):
+        os.symlink(os.path.join(images, name),
+                   os.path.join(data, "train", name))
+        if i < n_test:
+            os.symlink(os.path.join(images, name),
+                       os.path.join(data, "test", name))
+    return data
+
+
+def run_cli(main, argv):
+    """(main(argv)'s return, its standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = main(argv)
+    return ret, out.getvalue()
+
+
+def phase_dytrain(dev, smi, teacher_model, data):
+    """DYSTF distillation (`stf_tpu_torch.training.dytrain`) at full width.
+    The teacher: `teacher_model` (phase_train's STF) saved by the zoo and
+    read back with is_teacher, the --teacher-checkpoint route. The student:
+    the full-width DYSTF of `smoke_model`. DYTRAIN_STEPS steps of
+    make_dytrain_step (clf_weight 1: at the CLI's 0 the slice transforms
+    get no RD gradient) on smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+    TRAIN_SIZE, seed=step): every loss part finite; each step launches B1
+    DYTRAIN_B1 times; after step 1 every student gradient finite, the
+    predictors' nonzero; the teacher bit-unchanged. Prints each keep mask's
+    share against its target, the warm median step, one step's device
+    time by kind and B1's backward in it; holds B1 under autograd at one
+    step's calls (the routed blocks' merged tokens) against the plain
+    version; sends the distilled student through the codec
+    (`codec_round_trip`); and runs `dytrain.main` for one epoch on the
+    PNG folder `data` with --teacher-checkpoint. Returns the training
+    path's launches and the round trip's."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.training import TrainState, dytrain, make_dytrain_step
+    from stf_tpu_torch.training.checkpoint import load_checkpoint as load_ckpt
+    from stf_tpu_torch.zoo import load_checkpoint, save_checkpoint
+
+    counts = _native.launch_counts
+    b1 = lambda: sum(v for k, v in counts.items()  # noqa: E731
+                     if k.startswith("window_attention"))
+    with tempfile.TemporaryDirectory(prefix="dytrain_") as tmp:
+        tpath = os.path.join(tmp, "stf_teacher.pth.tar")
+        save_checkpoint(tpath, "stf", teacher_model)
+        teacher = load_checkpoint(tpath, "stf", device=dev, is_teacher=True)
+        frozen = {k: v.clone() for k, v in teacher.state_dict().items()}
+        if not (teacher.is_teacher and same_state(
+                frozen, teacher_model.state_dict())):
+            raise AssertionError("dytrain: the teacher did not load as saved")
+        student = smoke_model("dystf")
+        state = TrainState(student, dev, seed=SEED)
+        step = make_dytrain_step(student, teacher, DYTRAIN_LMBDA,
+                                 DYTRAIN_KEEP, clf_weight=1.0)
+        batches = [torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+                                                 TRAIN_SIZE, i)).to(dev)
+                   for i in range(DYTRAIN_STEPS)]
+        history, secs = [], []
+        counts.clear()  # the dytrain path starts here
+        for i, x in enumerate(batches):
+            before = b1()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = step(state, x)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            m = {k: float(v) for k, v in parts.items()}
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"dytrain step {i + 1}: {m}")
+            if b1() - before != DYTRAIN_B1:
+                raise AssertionError(f"dytrain step {i + 1}: {b1() - before} "
+                                     f"B1 launches, want {DYTRAIN_B1}")
+            if i == 0:
+                bad = [n for n, p in student.named_parameters()
+                       if p.grad is None or not torch.isfinite(p.grad).all()
+                       or (".score_predictor." in n and not p.grad.any())]
+                if bad:
+                    raise AssertionError(f"dytrain step 1: {len(bad)} student "
+                                         f"gradients missing, not finite or "
+                                         f"zero, e.g. {bad[:5]}")
+            history.append(m)
+        launches = dict(counts)  # the dytrain path ends here
+        if not same_state(frozen, teacher.state_dict()):
+            raise AssertionError("dytrain: the teacher's weights moved")
+        with torch.no_grad():
+            out = student(batches[-1], training=True, sampler=state.sampler)
+        shares = [d.mean().item() for d in out["decisions"]]
+        fmt = lambda m: ", ".join(f"{k} {v:.5g}" for k, v in m.items())  # noqa: E731
+        warm = secs[TRAIN_WARM:]
+        print(f"dytrain (dystf student, stf teacher from "
+              f"--teacher-checkpoint's route, {TRAIN_BATCH}x{TRAIN_SIZE}x"
+              f"{TRAIN_SIZE}, lambda {DYTRAIN_LMBDA}, clf_weight 1, "
+              f"{DYTRAIN_STEPS} steps): every part finite, {DYTRAIN_B1} B1 "
+              f"launches a step (student 24 + teacher 24), every student "
+              f"gradient finite, the predictors' nonzero, the teacher "
+              f"bit-unchanged; step 1: {fmt(history[0])}; step "
+              f"{DYTRAIN_STEPS}: {fmt(history[-1])}; keep shares "
+              + ", ".join(f"{s:.4f} (target {t})"
+                          for s, t in zip(shares, DYTRAIN_KEEP)))
+        print(f"dytrain step ({smi}): first {secs[0] * 1e3:.1f} ms; steps "
+              f"{TRAIN_WARM + 1}-{DYTRAIN_STEPS} median "
+              f"{np.median(warm) * 1e3:.3f} ms (min {min(warm) * 1e3:.3f}, "
+              f"max {max(warm) * 1e3:.3f}); peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        bwd_ms, n_calls = b1_step_check("dytrain step", step, state,
+                                        batches[-1])
+        busy = device_time_by_kind("dytrain step", lambda: step(
+            state, batches[-1]), smi)
+        print(f"dytrain step: B1's backward (PyTorch ops) {bwd_ms:.3f} ms of "
+              f"device time in {n_calls} calls (graph replays at the step's "
+              f"shapes), {100 * bwd_ms / busy:.1f}% of the step's device "
+              f"busy time ({smi})")
+
+        img = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round()
+        student.eval()
+        an, hy, sy = B1_CALLS["dystf"]
+        rt = codec_round_trip("dystf distilled", student, dev,
+                              img.astype(np.uint8), (an + hy, hy + sy))
+
+        save_dir = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        cli_state, log = run_cli(dytrain.main, [
+            "-d", data, "-e", "1", "--batch-size", str(TRAIN_BATCH),
+            "--patch-size", str(TRAIN_SIZE), str(TRAIN_SIZE),
+            "--lambda", str(DYTRAIN_LMBDA), "--clf-weight", "1",
+            "--teacher-checkpoint", tpath, "--save-dir", save_dir,
+            "--num-workers", "4", "--log-every", "1"])
+        cli_s = time.perf_counter() - t0
+        n_train = len(os.listdir(os.path.join(data, "train")))
+        ckpt = load_ckpt(os.path.join(save_dir, "checkpoint.pth.tar"))
+        test = [line for line in log.splitlines()
+                if line.startswith("dytrain test epoch 0: loss")]
+        if (cli_state.step != n_train // TRAIN_BATCH or len(test) != 1
+                or not np.isfinite(ckpt["loss"]) or ckpt["epoch"] != 0):
+            raise AssertionError(f"dytrain.main: {cli_state.step} steps, "
+                                 f"log {log[-500:]!r}")
+        print(f"dytrain.main, one epoch on {data} ({n_train} images, batch "
+              f"{TRAIN_BATCH}, --teacher-checkpoint): {cli_state.step} steps "
+              f"in {cli_s:.1f} s; {test[0]}")
+    return launches, rt.launches
+
+
+def phase_train_gd(dev, smi, images):
+    """Gate-decorator pruning (`stf_tpu_torch.training.train_gd`) of the
+    full-width CC_GD (N 192, M 320, 10 slices; gates and masks at their
+    init of ones): GD_STEPS tock steps (RD + GD_SPARSE * L1 + aux) on
+    smooth_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE), losses finite; one
+    tick of GD_ROUNDS rounds over GD_SUBSET of those batches pruning
+    GD_TICK_NUM channels a round: param_scale falls, only gates and masks
+    move. Then z's gate unmasked (`h_a/gate_2` protected: pruning z is
+    approximate by design), `prune_export` to a temporary folder and
+    `zoo.load_checkpoint` of it on the card: its eval forward within 1e-5
+    of the masked gated model's, on 2x512x768; parameter counts before
+    and after; the pruned model through the lane and host coders
+    (`codec_round_trip`), B2, B3 and B4 launched; warm compress and
+    decompress medians beside the gated model's; and `eval_model.main -a
+    cc_gd` on the export over the Kodak PNGs `images`. Returns the round
+    trip's launches."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.cli import eval_model
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.training import (
+        TrainState,
+        iter_gates,
+        make_gd_train_step,
+        param_scale,
+        prune_export,
+        train_gd,
+    )
+    from stf_tpu_torch.zoo import create_model, load_checkpoint
+
+    model = create_model("cc_gd", seed=SEED)
+    state = TrainState(model, dev, seed=SEED)
+    step = make_gd_train_step(model, GD_LMBDA, GD_SPARSE)
+    batches = [torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+                                             TRAIN_SIZE, 100 + i)).to(dev)
+               for i in range(GD_STEPS)]
+    secs = []
+    for i, x in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step(state, x).items()}
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train_gd step {i + 1}: {m}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    scale = param_scale(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_gd.tick(model, lambda: iter(batches[:GD_SUBSET]), GD_LMBDA,
+                  state.sampler, GD_ROUNDS, GD_TICK_NUM, 1e-4)
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    pruned_scale = param_scale(model)
+    total = sum(g.mask.numel() for _, g in iter_gates(model))
+    if not pruned_scale <= scale - GD_ROUNDS * GD_TICK_NUM / total:
+        raise AssertionError(f"train_gd tick: param_scale {scale} -> "
+                             f"{pruned_scale}")
+    moved = [k for k, v in model.state_dict().items()
+             if not k.endswith((".gate", ".mask"))
+             and not torch.equal(v, before[k])]
+    if moved:
+        raise AssertionError(f"train_gd tick moved {moved[:5]}")
+    print(f"train_gd (cc_gd, {TRAIN_BATCH}x{TRAIN_SIZE}x{TRAIN_SIZE}, lambda "
+          f"{GD_LMBDA}, sparse lambda {GD_SPARSE}): {GD_STEPS} tock steps, "
+          f"last {m}; step median {np.median(secs[1:]) * 1e3:.3f} ms ({smi}); "
+          f"one tick ({GD_ROUNDS} rounds over {GD_SUBSET} batches, "
+          f"{GD_TICK_NUM} channels a round) {tick_s:.2f} s; param_scale "
+          f"{scale:.4f} -> {pruned_scale:.4f}; only gates and masks moved")
+
+    with torch.no_grad():
+        dict(iter_gates(model))["h_a/gate_2"].mask.fill_(1.0)
+    model.eval()
+    img = (smooth_batch(BATCH, HEIGHT, WIDTH, SEED) * 255).round().astype(
+        np.uint8)
     xf = torch.from_numpy(img).to(dev).float() / 255.0
-    print(f"{name} trained {state.step} steps through the codec "
-          f"(2x{TRAIN_SIZE}x{TRAIN_SIZE}): lane {nbytes * 8 / pixels:.4f} bpp, "
-          f"PSNR {psnr(x_hat, xf).item():.3f} dB, {enc['host_encoded']} of "
-          f"{model.num_slices} segments to the host encoder; symbols round "
-          "trip, lane x_hat bit-equal to host")
+    with tempfile.TemporaryDirectory(prefix="train_gd_") as tmp:
+        _, deps = prune_export(model, tmp)
+        path = os.path.join(tmp, train_gd.PRUNED_MODEL)
+        pruned = load_checkpoint(path, "cc_gd", device=dev)
+        n_gated = sum(p.numel() for p in model.parameters())
+        n_pruned = sum(p.numel() for p in pruned.parameters())
+        with torch.no_grad():
+            got, want = pruned(xf), model(xf)
+        errs = {k: (got[k] - want[k]).abs().max().item() for k in ("x_hat",)}
+        errs.update({k: (got["likelihoods"][k] - want["likelihoods"][k])
+                     .abs().max().item() for k in ("y", "z")})
+        if not max(errs.values()) <= 1e-5:
+            raise AssertionError(f"train_gd: the pruned model's eval forward "
+                                 f"against the gated model's: {errs}")
+        rt = codec_round_trip("cc_gd pruned", pruned, dev, img, (0, 0))
+        lane, enc = rt.lane, rt.enc
+        for k in ("lane_decode", "lane_encode", "layout_pin"):
+            if not rt.launches.get(k):
+                raise AssertionError(f"train_gd: {k} never launched")
+        gated = Codec(model, coder="lane", device=dev)
+        genc = gated.compress(img)
+        gated.decompress(genc["strings"], genc["shape"])  # capture
+        warm = warm_medians({
+            "pruned compress": lambda: lane.compress(img),
+            "pruned fused decompress": lambda: lane.decompress(
+                enc["strings"], enc["shape"]),
+            "gated compress": lambda: gated.compress(img),
+            "gated fused decompress": lambda: gated.decompress(
+                genc["strings"], genc["shape"])})
+        print(f"train_gd prune_export: {sum(deps.values())} of {total} gated "
+              f"channels kept at {len(deps)} gates; parameters {n_gated} -> "
+              f"{n_pruned} ({100 * n_pruned / n_gated:.1f}%); reloaded on the "
+              f"card, its eval forward against the gated model's (z's gate "
+              f"unmasked), max abs {errs}; warm medians of 5 "
+              f"({BATCH}x{HEIGHT}x{WIDTH}, lane coder, {smi}): "
+              + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
+        _, out = run_cli(eval_model.main, ["-d", images, "-a", "cc_gd", "-p",
+                                           path, "--backend", "lane"])
+        doc = json.loads(out)
+        r = {k: v[0] for k, v in doc["results"].items()}
+        if doc["name"] != "cc_gd" or not (r["bpp"] > 0 and np.isfinite(
+                r["psnr"])):
+            raise AssertionError(f"eval_model -a cc_gd on the export: {doc}")
+        print(f"eval_model -a cc_gd -p {train_gd.PRUNED_MODEL} --backend lane "
+              f"({len(os.listdir(images))} Kodak-layout PNGs, {smi}): "
+              f"{r['encoding_time'] * 1e3:.2f} + {r['decoding_time'] * 1e3:.2f}"
+              f" ms an image warm, bpp {r['bpp']:.4f}, PSNR {r['psnr']:.4f} dB")
+    return rt.launches
 
 
 def sm_clock_mhz():
@@ -1981,18 +2327,39 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
-    rows = (phase_attention(dev) + phase_attention_bf16(dev)
-            + phase_lane_decode(dev, sm_mhz) + phase_lane_encode(dev, sm_mhz)
-            + phase_layout_pin(dev))
-    launches = {name: phase_codec(dev, smi, name) for name in CODEC_MODELS}
-    phase_stf_seed_fallback(dev)
-    launches["tbc_bf16"] = phase_tbc_bf16(dev, smi)
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    rows = (phase("attention", phase_attention, dev)
+            + phase("attention_bf16", phase_attention_bf16, dev)
+            + phase("lane_decode", phase_lane_decode, dev, sm_mhz)
+            + phase("lane_encode", phase_lane_encode, dev, sm_mhz)
+            + phase("layout_pin", phase_layout_pin, dev))
+    launches = {name: phase(f"codec {name}", phase_codec, dev, smi, name)
+                for name in CODEC_MODELS}
+    phase("stf_seed_fallback", phase_stf_seed_fallback, dev)
+    launches["tbc_bf16"] = phase("tbc_bf16", phase_tbc_bf16, dev, smi)
     for model_name in ("cnn", "stf"):
-        launches[f"{model_name}_bf16"] = phase_codec_bf16(dev, smi, model_name)
-    eval_launches = phase_eval_cli(dev, smi)
-    print(f"eval CLI phase launches: {eval_launches}")
-    for model_name in ("cnn", "stf"):
-        phase_train(dev, smi, model_name)
+        launches[f"{model_name}_bf16"] = phase(
+            f"codec_bf16 {model_name}", phase_codec_bf16, dev, smi, model_name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        images, sizes = kodak_pngs(work)
+        eval_launches = phase("eval_cli", phase_eval_cli, dev, smi, images,
+                              sizes)
+        print(f"eval CLI phase launches: {eval_launches}")
+        trained = {name: phase(f"train {name}", phase_train, dev, smi, name)
+                   for name in ("cnn", "stf")}
+        dy_train, dy_codec = phase(
+            "dytrain", phase_dytrain, dev, smi, trained["stf"],
+            training_folder(work, images))
+        gd_codec = phase("train_gd", phase_train_gd, dev, smi, images)
+    print(f"dytrain path launches: training {dy_train}; the distilled "
+          f"DYSTF's round trip {dy_codec}")
+    print(f"train_gd path launches: the pruned CC_GD's round trip {gd_codec}")
     for row in rows:
         # B1's rows count on their model's path (the bf16 instances on the
         # bench path's or TBC's bf16 round trip's), B2-B4's on WACNN's

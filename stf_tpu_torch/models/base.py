@@ -134,17 +134,23 @@ class ChannelARModel(nn.Module):
     def forward(self, x, training: bool = False, sampler=None) -> Dict:
         """x: NHWC float in [0, 1]. Returns the unclipped NHWC x_hat and NHWC
         likelihoods {"y", "z"}: rounding quantization, or in training
-        noise drawn from `sampler` and straight-through rounding."""
+        noise drawn from `sampler` and straight-through rounding. A model
+        built with `is_teacher` also returns its NHWC latent "y"
+        (`stf_tpu/models/base.py:125-131`), which DYSTF's distillation
+        reads."""
         if training and sampler is None:
             raise ValueError("the training forward draws its noise from a "
                              "sampler; none was given")
         y = self.analysis(x.permute(0, 3, 1, 2).contiguous(), sampler)
         y_hat, likelihoods = self.entropy_forward(y, training, sampler)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
-        return {
+        out = {
             "x_hat": nhwc(self.synthesis(y_hat, sampler)),
             "likelihoods": {k: nhwc(v) for k, v in likelihoods.items()},
         }
+        if getattr(self, "is_teacher", False):
+            out["y"] = nhwc(y)
+        return out
 
     def entropy_forward(self, y, training: bool = False, sampler=None):
         """Hyper path + channel-AR slice loop on NCHW y; returns (y_hat,

@@ -1,5 +1,5 @@
 """DYSTF, STF with input-adaptive token pruning (port of
-`stf_tpu/models/dystf.py`, eval branch).
+`stf_tpu/models/dystf.py`).
 
 Architecture and module names are the reference's
 (`compressai/models/dystf.py`), so state_dict keys are the reference torch
@@ -13,9 +13,18 @@ n_keep = int(N * ratio) best (a stable descending sort, so tied scores
 keep token order) go through the block's MLP, the rest through its
 `fastmlp`, and both are scattered back. Attention always runs on every
 token. The schedule is the reference's, shared-list quirk included
-(`pruning_schedule`). The training branch (Gumbel-softmax routing and its
-two-tensor state, `is_teacher`) comes with dytrain (ROADMAP A.8); asking
-for it raises.
+(`pruning_schedule`).
+
+Training routing (`forward(x, training=True, sampler=...)`,
+`dystf.py:144-153, 205-269` of the JAX package): a predictor scores the
+merged tokens and a straight-through Gumbel-softmax (`gumbel_softmax_hard`,
+its noise from the sampler) turns the scores into a hard (B, N, 1) keep
+mask. From the stage's first predictor on, the stage carries two token
+tensors [x1, x2]: a routed block attends over x1*m + x2*(1-m), then sends
+the re-split x1 through its MLP and x2 through its `fastmlp`; the stage
+merges them with its last mask before `downsample`. The forward then also
+returns the last pruned stage's masks (`decisions`) and the NHWC latent
+`y`, which distillation holds against the teacher's.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -27,9 +36,17 @@ import torch.nn as nn
 from ..layers.swin import PatchMerging, SwinTransformerBlock
 from .stf import SymmetricalTransFormer
 
-_TRAINING = ("DYSTF's training branch (Gumbel-softmax routing, the "
-             "two-tensor token state, is_teacher) is not ported: it comes "
-             "with dytrain, ROADMAP A.8")
+
+def gumbel_softmax_hard(logits, sampler, dim: int = -1):
+    """Straight-through Gumbel-softmax (`dystf.py:46-55`): the forward is
+    the exact one-hot of the argmax of softmax(logits + g) (ties to the
+    first index), the gradient the soft sample's. g is standard Gumbel
+    noise from `sampler`. (soft - detached soft) is grouped first: exactly
+    zero in the forward, so no float cancellation touches the one-hot."""
+    y_soft = torch.softmax(logits + sampler.gumbel(logits.shape, logits), dim)
+    idx = y_soft.argmax(dim, keepdim=True)
+    y_hard = torch.zeros_like(y_soft).scatter_(dim, idx, 1.0)
+    return y_hard + (y_soft - y_soft.detach())
 
 
 class FastMlp(nn.Module):
@@ -79,20 +96,36 @@ class AdaSwinTransformerBlock(SwinTransformerBlock):
                          drop_path)
         self.fastmlp = FastMlp(dim)
 
+    def _attend_tokens(self, tokens, H: int, W: int, sampler):
+        B, _, C = tokens.shape
+        return tokens + self.drop_path(
+            self.attend(tokens.reshape(B, H, W, C)).reshape(B, H * W, C),
+            sampler)
+
     def forward(self, tokens, H: int, W: int, routed, sampler=None):
         """(B, H*W, C) tokens and routed = (keep, drop) token indexes
         (`route`) -> (B, H*W, C)."""
-        B, _, C = tokens.shape
+        B = tokens.shape[0]
         keep, drop = routed
-        x = tokens + self.drop_path(
-            self.attend(tokens.reshape(B, H, W, C)).reshape(B, H * W, C),
-            sampler)
+        x = self._attend_tokens(tokens, H, W, sampler)
         b = torch.arange(B, device=x.device)[:, None]
         filled = torch.zeros_like(x)
         filled[b, keep] = self.drop_path(self.mlp(self.norm2(x[b, keep])),
                                          sampler)
         filled[b, drop] = self.drop_path(self.fastmlp(x[b, drop]), sampler)
         return x + filled
+
+    def forward_masked(self, state, H: int, W: int, mask, sampler=None):
+        """The training branch: state = [x1, x2], each (B, H*W, C), and a
+        (B, H*W, 1) keep mask -> the new [x1, x2]. Attention runs on the
+        merged tokens; its DropPath mask is drawn first, then the MLP's for
+        x1 and the fastmlp's for x2, the JAX block's order."""
+        x1, x2 = state
+        x = self._attend_tokens(x1 * mask + x2 * (1 - mask), H, W, sampler)
+        x1 = x * mask + x1 * (1 - mask)
+        x2 = x * (1 - mask) + x2 * mask
+        return [x + self.drop_path(self.mlp(self.norm2(x1)), sampler),
+                x + self.drop_path(self.fastmlp(x2), sampler)]
 
 
 def route(scores, ratio: float):
@@ -154,6 +187,7 @@ class DyBasicLayer(nn.Module):
         super().__init__()
         self.steps = {i: (p, ratio) for i, p, ratio in steps}
         first = depth if first_routed is None else first_routed
+        self.first_routed = first
         self.blocks = nn.ModuleList(
             (SwinTransformerBlock if i < first else AdaSwinTransformerBlock)(
                 dim, num_heads, window_size,
@@ -167,11 +201,14 @@ class DyBasicLayer(nn.Module):
             PredictorLG(dim) for _ in self.steps)
         self.downsample = PatchMerging(dim) if merge else None
 
-    def forward(self, x, sampler=None, decisions: Optional[List] = None):
-        """NHWC map -> NHWC map; each pruning step's (keep, drop) indexes
-        are appended to `decisions` when it is given."""
-        if self.training:
-            raise NotImplementedError(_TRAINING)
+    def forward(self, x, sampler=None, decisions: Optional[List] = None,
+                training: bool = False):
+        """NHWC map -> NHWC map; each pruning step's (keep, drop) indexes,
+        or in training its (B, H*W, 1) keep mask, are appended to
+        `decisions` when it is given."""
+        if training:
+            x = self._forward_masked(x, sampler, decisions)
+            return x if self.downsample is None else self.downsample(x)
         B, H, W, C = x.shape
         routed = None
         for i, block in enumerate(self.blocks):
@@ -187,6 +224,40 @@ class DyBasicLayer(nn.Module):
             else:
                 x = block(x, sampler)
         return x if self.downsample is None else self.downsample(x)
+
+    def _forward_masked(self, x, sampler, decisions):
+        """The training routing (`dystf.py:205-269` of the JAX package):
+        tokens until the first predictor, which scores them and splits
+        them into [x1, x2]; each later predictor scores the merge
+        x1*m + x2*(1-m) under the previous mask m. Returns the NHWC map of
+        the tokens merged under the last mask."""
+        if self.steps and min(self.steps) < self.first_routed:
+            # the JAX branch fails here too (a plain block given [x1, x2])
+            raise ValueError(
+                f"this stage's schedule scores tokens at block "
+                f"{min(self.steps)}, before its first routed block "
+                f"{self.first_routed}: the training routing cannot run it")
+        B, H, W, C = x.shape
+        state, mask = x.reshape(B, H * W, C), None
+        for i, block in enumerate(self.blocks):
+            if i in self.steps:
+                p, _ = self.steps[i]
+                merged = state if mask is None else (
+                    state[0] * mask + state[1] * (1 - mask))
+                mask = gumbel_softmax_hard(self.score_predictor[p](merged),
+                                           sampler)[..., 0:1]
+                if p == 0:
+                    state = [merged, merged]
+                if decisions is not None:
+                    decisions.append(mask)
+            if isinstance(block, AdaSwinTransformerBlock):
+                state = block.forward_masked(state, H, W, mask, sampler)
+            else:
+                state = block(state.reshape(B, H, W, C),
+                              sampler).reshape(B, H * W, C)
+        if isinstance(state, list):
+            state = state[0] * mask + state[1] * (1 - mask)
+        return state.reshape(B, H, W, C)
 
 
 class DYSTF(SymmetricalTransFormer):
@@ -216,23 +287,41 @@ class DYSTF(SymmetricalTransFormer):
             start += depth
         self.layers = nn.ModuleList(stages)
 
-    def analysis_with_decisions(self, x) -> Tuple[torch.Tensor, List]:
-        """NCHW image -> (NCHW y, the last pruned stage's (keep, drop)
-        index pairs), the decisions the JAX model returns."""
+    def analysis_with_decisions(self, x, training: bool = False,
+                                sampler=None) -> Tuple[torch.Tensor, List]:
+        """NCHW image -> (NCHW y, the last pruned stage's decisions, as the
+        JAX model returns them): (keep, drop) index pairs in eval routing,
+        (B, N, 1) keep masks in training routing."""
         x = self.patch_embed(x)
         final: List = []
         for layer in self.layers:
             decisions: List = []
-            x = layer(x, decisions=decisions)
+            x = layer(x, sampler, decisions, training)
             if decisions:
                 final = decisions
         return x.permute(0, 3, 1, 2).contiguous(), final
 
     def analysis(self, x, sampler=None):
         """NCHW image -> NCHW y (eval routing)."""
-        return self.analysis_with_decisions(x)[0]
+        return self.analysis_with_decisions(x, sampler=sampler)[0]
 
     def forward(self, x, training: bool = False, sampler=None) -> Dict:
-        if training:
-            raise NotImplementedError(_TRAINING)
-        return super().forward(x, training, sampler)
+        """The eval forward as every ChannelARModel's; with `training`,
+        the training routing and noise from `sampler`, and the output also
+        holds `decisions` (the last pruned stage's keep masks) and the
+        NHWC latent `y` (`dystf.py:415-424` of the JAX package)."""
+        if not training:
+            return super().forward(x, training, sampler)
+        if sampler is None:
+            raise ValueError("the training forward draws its noise from a "
+                             "sampler; none was given")
+        y, decisions = self.analysis_with_decisions(
+            x.permute(0, 3, 1, 2).contiguous(), True, sampler)
+        y_hat, likelihoods = self.entropy_forward(y, True, sampler)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        return {
+            "x_hat": nhwc(self.synthesis(y_hat, sampler)),
+            "likelihoods": {k: nhwc(v) for k, v in likelihoods.items()},
+            "decisions": decisions,
+            "y": nhwc(y),
+        }

@@ -17,8 +17,9 @@ the Swin stages run on NHWC maps inside. Stochastic depth: drop-path rates
 spaced by linspace from 0 to `drop_path_rate` over the analysis blocks
 (`stf.py:62,71` of the JAX package), the same list for the synthesis's
 blocks; in training mode each block draws its masks from the sampler
-`analysis` and `synthesis` are given. The DYSTF teacher output
-(`is_teacher`) is not ported.
+`analysis` and `synthesis` are given. Built with `is_teacher`, the
+forward also returns the NHWC latent "y" (`stf.py:63` of the JAX package),
+the target of DYSTF's distillation (`training/dytrain.py`).
 """
 
 from typing import Sequence
@@ -47,8 +48,10 @@ class SymmetricalTransFormer(ChannelARModel):
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 4, num_slices: int = 12,
-                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.2):
+                 mlp_ratio: float = 4.0, drop_path_rate: float = 0.2,
+                 is_teacher: bool = False):
         super().__init__()
+        self.is_teacher = is_teacher
         n = len(depths)
         self.M = embed_dim * 2 ** (n - 1)
         self.N = self.M // 2

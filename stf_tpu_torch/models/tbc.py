@@ -81,7 +81,10 @@ class TransformerBasedCoding(ChannelARModel):
                                     num_heads, window_size, mlp_ratio, dpr,
                                     "split")
         h_in = (m_ch[-1],) + h_ch[:-1]
-        h_dpr = dpr[:sum(h_depths)]
+        # the JAX model calls its hyper stacks deterministically, in
+        # training too (`tbc.py:103-130` of the JAX package): no
+        # stochastic depth there
+        h_dpr = [0.0] * sum(h_depths)
         self.h_a = SwinStack(h_in, h_ch, h_depths, h_num_heads,
                              h_window_size, mlp_ratio, h_dpr, "merge")
         for name in ("h_mean_s", "h_scale_s"):

@@ -2,17 +2,19 @@
 
 The JAX step draws from key streams (`noise`, `droppath`); the port draws
 every value from one `torch.Generator` on the model's device, in the
-order the forward asks: the analysis's DropPath masks, z's noise, each
-slice's noise, then the synthesis's masks. Shapes are the JAX package's,
-so a test can record a `Sampler`'s draws and hand the same values to the
-JAX step.
+order the forward asks: the analysis's DropPath masks (and DYSTF's
+Gumbel noise, each predictor's drawn when it scores, between the masks
+of the blocks around it), z's noise, each slice's noise, then the
+synthesis's masks. Shapes are the JAX package's, so a test can record a
+`Sampler`'s draws and hand the same values to the JAX step.
 """
 
 import torch
 
 
 class Sampler:
-    """U(-1/2, 1/2) noise and Bernoulli masks from `generator`."""
+    """U(-1/2, 1/2) noise, Bernoulli masks and Gumbel noise from
+    `generator`."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -28,3 +30,12 @@ class Sampler:
         u = torch.rand(shape, generator=self.generator, device=like.device,
                        dtype=like.dtype)
         return u < p
+
+    def gumbel(self, shape, like: torch.Tensor) -> torch.Tensor:
+        """Standard Gumbel noise -log(-log(u)) of `shape`, u uniform in
+        [finfo.tiny, 1) as `jax.random.gumbel` draws it (a u of 0 would
+        give inf)."""
+        u = torch.rand(shape, generator=self.generator, device=like.device,
+                       dtype=like.dtype)
+        u = u.clamp_min(torch.finfo(like.dtype).tiny)
+        return -torch.log(-torch.log(u))

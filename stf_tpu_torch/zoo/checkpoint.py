@@ -11,7 +11,10 @@ through `blob.get("state_dict", blob)`:
   * reference-layout `.pth.tar` files: a DataParallel `module.` prefix and
     the legacy `_biases.` / `_matrices.` / `_factors.` keys, cleaned by
     `strip_prefixes`, and the buffers the reference registers but the port
-    derives itself (`_DERIVED`), dropped.
+    derives itself (`_DERIVED`), dropped;
+  * a pruned CC_GD export (`training/train_gd.py:prune_export`), whose
+    `path + ".deps.json"` sidecar, {"deps", "model_kwargs"}, names the
+    kept widths: read into `CC_GD(deps=...)`.
 The load is strict: any other missing or unexpected key raises. The JAX
 package reads the port's files through its own `load_any_checkpoint`.
 """
@@ -62,14 +65,19 @@ def load_checkpoint(path: str, model_name: Optional[str] = None,
             "files (.pth, .pth.tar, .pt). The JAX package reads the port's "
             "files through stf_tpu.zoo.load_any_checkpoint"
         )
-    if os.path.exists(path + ".deps.json"):
-        raise NotImplementedError(
-            f"{path}: a pruned cc_gd export (.deps.json); reading one comes "
-            "with train_gd's prune_export, ROADMAP A.8 (CC_GD(deps=...) "
-            "builds the pruned widths)"
-        )
     kwargs = {}
-    if os.path.exists(path + ".json"):
+    if os.path.exists(path + ".deps.json"):
+        # a pruned export (`training/train_gd.py:prune_export`): the
+        # ungated CC_GD at the widths its sidecar names
+        if model_name not in (None, "cc_gd"):
+            raise ValueError(f"{path}: a pruned cc_gd export, not a "
+                             f"{model_name!r} checkpoint")
+        with open(path + ".deps.json") as f:
+            meta = json.load(f)
+        model_name = "cc_gd"
+        kwargs = dict(meta.get("model_kwargs", {}),
+                      deps=tuple(sorted(meta["deps"].items())))
+    elif os.path.exists(path + ".json"):
         with open(path + ".json") as f:
             meta = json.load(f)
         model_name = model_name or meta["model"]

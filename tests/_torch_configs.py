@@ -21,5 +21,14 @@ TBC_SMALL = dict(depths=(2, 2, 2, 2), h_depths=(2, 1), num_heads=4,
 DYSTF_SMALL = dict(embed_dim=16, depths=(2, 2, 4, 2), num_heads=(1, 2, 4, 8),
                    num_slices=4, pruning_locs=(4, 6, 9),
                    sparse_ratio=(0.75, 0.5, 0.25))
+# a small DYSTF whose schedule trains: DYSTF_SMALL's stage 3 scores at
+# block 0, before its first routed block 1, which neither package's
+# training routing can run. Shared offsets (1, 1, 2): stages 1 and 2
+# score at block 1, stage 3 at blocks 1 and 2 (predictors 0 and 1), so
+# the last pruned stage returns two masks and its second predictor
+# scores the merge of [x1, x2]
+DYSTF_TRAIN = dict(embed_dim=16, depths=(2, 2, 2, 4), num_heads=(1, 2, 4, 8),
+                   num_slices=4, pruning_locs=(4, 6, 9),
+                   sparse_ratio=(0.75, 0.5, 0.25))
 CONFIGS = {"cnn": SMALL, "stf": STF_SMALL, "tbc": TBC_SMALL, "cc": SMALL,
            "cc_gd": SMALL, "dystf": DYSTF_SMALL}

@@ -26,6 +26,19 @@ def images(size: int, n: int = 2, seed: int = 3) -> np.ndarray:
     return smooth_images(n, size, size, seed=seed).astype(np.float32) / 255.0
 
 
+def png_folder(root, n_train: int = 4, n_test: int = 2, size: int = 72):
+    """An ImageFolder root at `root` (a pathlib.Path): train/ and test/
+    holding n_train and n_test smooth size x size PNGs. Returns it as a
+    string."""
+    from PIL import Image
+
+    for split, n in (("train", n_train), ("test", n_test)):
+        (root / split).mkdir()
+        for i, img in enumerate(smooth_images(n, size, size, seed=len(split))):
+            Image.fromarray(img).save(root / split / f"{i}.png")
+    return str(root)
+
+
 def outputs(out) -> dict:
     return {"x_hat": np.asarray(out["x_hat"]),
             **{k: np.asarray(v) for k, v in out["likelihoods"].items()}}

@@ -27,6 +27,7 @@ from stf_tpu_torch.models import (
 from _torch_configs import (  # noqa: F401 (re-exported)
     CONFIGS,
     DYSTF_SMALL,
+    DYSTF_TRAIN,
     SMALL,
     STF_SMALL,
     TBC_SMALL,

@@ -780,6 +780,9 @@ class _Replay:
         return self._next("b", lambda: self.sampler.bernoulli(p, shape, like),
                           like)
 
+    def gumbel(self, shape, like):
+        return self._next("g", lambda: self.sampler.gumbel(shape, like), like)
+
 
 class _Rounding:
     """`ste_round` for `stf_tpu_torch.models.base` (its rounding of
@@ -1099,3 +1102,138 @@ def test_eval_cli_prefetch_gives_the_same_metrics(dev, backend, eval_images,
     for k, v in runs[0].items():
         if "time" not in k:
             assert runs[1][k] == v, k
+
+
+def _dytrain_step(student, teacher, where, draws=None):
+    """One `make_dytrain_step` (clf_weight 1) of copies of the small DYSTF
+    student and STF teacher on `where` at 64x64, batch 2, with the CPU's
+    draws replayed when `draws` is given: (loss parts, every student
+    gradient on the CPU, B1 launches, the draws)."""
+    import copy
+
+    from stf_tpu_torch.training import TrainState, make_dytrain_step
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.random((2, 64, 64, 3)) * 0.4 + 0.3)
+                         .astype(np.float32))
+    b1 = lambda: sum(v for k, v in _native.launch_counts.items()  # noqa: E731
+                     if k.startswith("window_attention"))
+    s, t = copy.deepcopy(student), copy.deepcopy(teacher).to(where)
+    t_before = {k: v.clone() for k, v in t.state_dict().items()}
+    state = TrainState(s, where, seed=5)
+    sampler = state.sampler = _Replay(state.sampler,
+                                      None if draws is None else list(draws))
+    grads = {}
+    update = state.apply_gradients
+
+    def apply_gradients():
+        grads.update({n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                      .detach().cpu().clone()
+                      for n, p in s.named_parameters()})
+        update()
+
+    state.apply_gradients = apply_gradients
+    before = b1()
+    parts = make_dytrain_step(s, t, 0.013, (0.75, 0.5, 0.25),
+                              clf_weight=1.0)(state, x.to(where))
+    assert all(torch.equal(v, t_before[k]) for k, v in t.state_dict().items())
+    if draws is not None:
+        assert sampler.draws == []
+    return ({k: float(v) for k, v in parts.items()}, grads, b1() - before,
+            sampler.recorded if draws is None else draws)
+
+
+def test_dytrain_step_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """A DYSTF distillation step (the student's training routing, the
+    frozen teacher's eval forward, B1 under autograd) on the card against
+    the same step on the CPU: the small DYSTF of the CPU tests whose
+    schedule trains (`DYSTF_TRAIN`) and the small STF teacher, both at He
+    scale, the CPU's draws and roundings of y - mu replayed (as the RD
+    step's He-scale test does: a rounding that flips on the card moves
+    y_hat by 1). Loss parts within LOSS_RTOL_CARD, each gradient within
+    GRAD_TOL_CUDNN_HE of its tensor's largest CPU gradient; B1 launched
+    30 times (student 10 + 10, teacher 5 + 5); the teacher bit-unchanged."""
+    from _torch_configs import DYSTF_TRAIN, STF_SMALL
+    from _torch_scale import he_scale
+    from stf_tpu_torch.models import DYSTF, SymmetricalTransFormer, base
+    from stf_tpu_torch.models import dystf, init_weights
+
+    gen = torch.Generator().manual_seed(6)
+    student = he_scale(init_weights(DYSTF(**DYSTF_TRAIN), gen), gen, "dystf")
+    teacher = he_scale(init_weights(SymmetricalTransFormer(
+        **STF_SMALL, is_teacher=True), gen), gen, "stf")
+    hard, masks = dystf.gumbel_softmax_hard, []
+
+    def recorded(*a):
+        y = hard(*a)
+        masks.append(y.detach().cpu())
+        return y
+
+    monkeypatch.setattr(dystf, "gumbel_softmax_hard", recorded)
+    rounding = _Rounding()
+    monkeypatch.setattr(base, "ste_round", rounding)
+    cpu = _dytrain_step(student, teacher, "cpu")
+    cpu_masks, masks[:] = masks[:], []
+    monkeypatch.setattr(base, "ste_round", _Rounding(rounding.outputs))
+    card = _dytrain_step(student, teacher, "cuda", cpu[3])
+    assert cpu[2] == 0 and card[2] == 30
+    # every stage's keep masks: 1 + 1 + 2, the same tokens on both
+    assert len(masks) == len(cpu_masks) == 4
+    for a, b in zip(cpu_masks, masks):
+        assert torch.equal(a, b)
+    loss_err, grad_err = _step_errors(cpu, card)
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:5]
+    print(f"dytrain step: loss parts' relative errors {loss_err}; worst "
+          f"gradients {worst}")
+    assert all(e <= LOSS_RTOL_CARD for e in loss_err.values()), loss_err
+    assert all(e <= GRAD_TOL_CUDNN_HE for e in grad_err.values()), worst
+
+
+def test_pruned_export_round_trip(dev, tmp_path):
+    """A small gated CC_GD (random gates, a third of its channels masked,
+    z's gate unmasked) exported by `prune_export` and reloaded on the card:
+    its eval forward within 1e-5 of the gated model's; through the lane
+    coder (fused and per-slice decompress) and the host coder the symbols
+    round-trip and x_hat is bit-equal; B2, B3 and B4 launched."""
+    import warnings
+
+    from _torch_configs import SMALL
+    from _torch_scale import he_scale, random_gates
+    from stf_tpu_torch.models import CC_GD, Codec, init_weights
+    from stf_tpu_torch.training import iter_gates, load_pruned_checkpoint
+    from stf_tpu_torch.training import prune_export
+
+    gen = torch.Generator().manual_seed(0)
+    gated = random_gates(he_scale(init_weights(CC_GD(**SMALL), gen), gen,
+                                  "cc_gd"), 1).to(dev).eval()
+    with torch.no_grad():
+        dict(iter_gates(gated))["h_a/gate_2"].mask.fill_(1.0)
+    _, deps = prune_export(gated, str(tmp_path))
+    pruned = load_pruned_checkpoint(str(tmp_path / "pruned_model.pth.tar"),
+                                    dev)
+    assert sum(deps.values()) < sum(g.mask.numel()
+                                    for _, g in iter_gates(gated))
+    x = _pattern(64, 128)
+    xf = torch.from_numpy(x).to(dev).float() / 255.0
+    with torch.no_grad():
+        got, want = pruned(xf), gated(xf)
+    assert (got["x_hat"] - want["x_hat"]).abs().max().item() <= 1e-5
+    lane = Codec(pruned, coder="lane", device=dev)
+    host = Codec(pruned, coder="host", device=dev)
+    before = dict(_native.launch_counts)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        enc = lane.compress(x)
+        fused = lane.decompress(enc["strings"], enc["shape"])
+        lane.fused = False
+        walk = lane.decompress(enc["strings"], enc["shape"])
+        henc = host.compress(x)
+        hdec = host.decompress(henc["strings"], henc["shape"])
+    ran = _lane_launches(before)
+    assert all(ran.get(k, 0) for k in ("lane_decode", "lane_encode",
+                                        "layout_pin")), ran
+    for s, f, w, h in zip(enc["symbols"], fused["symbols"], walk["symbols"],
+                          henc["symbols"]):
+        assert torch.equal(f, s) and torch.equal(w, s) and torch.equal(h, s)
+    assert torch.equal(fused["x_hat"], walk["x_hat"])
+    assert torch.equal(hdec["x_hat"], fused["x_hat"])

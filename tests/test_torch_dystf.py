@@ -10,7 +10,9 @@ and routed blocks exist, for the defaults and the small model); the
 (keep, drop) token indexes the last pruned stage chooses against the JAX
 forward's `decisions`; planted score ties (every predictor's last layer
 at zero) must keep JAX's order, the first n_keep tokens. Tolerances and
-exactness as `_torch_family` states them.
+exactness as `_torch_family` states them. The training routing's shapes,
+masks and refusals are checked here; tests/test_torch_dytrain.py holds it
+to the JAX forward.
 """
 
 import jax
@@ -20,10 +22,12 @@ import torch
 
 import _torch_family as fam
 from _torch_port import one_torch_thread  # noqa: F401 (autouse)
-from _torch_port import DYSTF_SMALL, flat_leaves, jax_template, port_small
+from _torch_port import DYSTF_SMALL, DYSTF_TRAIN, flat_leaves, jax_template
+from _torch_port import port_small
 from _torch_port import to_jax
 from stf_tpu.models.dystf import DYSTF as JaxDYSTF
 from stf_tpu_torch.models import dystf
+from stf_tpu_torch.training import Sampler
 from stf_tpu_torch.zoo import create_model
 
 SIZES = (64, 72)
@@ -208,12 +212,50 @@ def test_eval_forward_comparison_catches_planted_faults(pair, forwards,
 
 
 def test_training_branch_raises(pair):
+    """The training forward wants a sampler; DYSTF_SMALL's last stage
+    scores at block 0, before its first routed block, which the training
+    routing cannot run (the JAX branch fails there too), while the eval
+    routing runs it; a stage in train mode draws its DropPath masks from
+    a sampler only."""
     x = torch.from_numpy(fam.images(64))
-    with pytest.raises(NotImplementedError, match="dytrain"):
-        pair["port"](x, training=True, sampler=object())
-    model = create_model("dystf", **DYSTF_SMALL).train()
-    with pytest.raises(NotImplementedError, match="dytrain"):
+    with pytest.raises(ValueError, match="sampler"):
+        pair["port"](x, training=True)
+    model = create_model("dystf", seed=0, **DYSTF_SMALL).train()
+    with pytest.raises(ValueError, match="before its first routed block"):
+        model(x, training=True,
+              sampler=Sampler(torch.Generator().manual_seed(0)))
+    with pytest.raises(NotImplementedError, match="explicit sampler"):
         model.analysis(x.permute(0, 3, 1, 2))
+    with torch.no_grad():
+        assert model.eval()(x)["x_hat"].shape == (2, 64, 64, 3)
+
+
+def test_training_branch_runs():
+    """The training forward (test_torch_dytrain.py holds it against JAX's):
+    a DYSTF whose schedule trains returns x_hat and the likelihoods at the
+    eval forward's shapes, the last pruned stage's two one-hot keep masks
+    (B, N, 1) and the NHWC latent y; the predictors get a gradient through
+    the masks' straight-through term; the eval forward is unchanged by a
+    training call."""
+    model = create_model("dystf", seed=2, **DYSTF_TRAIN)
+    x = torch.from_numpy(fam.images(64))
+    with torch.no_grad():
+        before = model.eval()(x)["x_hat"]
+    out = model.train()(x, training=True,
+                        sampler=Sampler(torch.Generator().manual_seed(1)))
+    assert out["x_hat"].shape == (2, 64, 64, 3)
+    assert out["likelihoods"]["y"].shape == (2, 4, 4, 128)
+    assert out["y"].shape == (2, 4, 4, 128)
+    assert [d.shape for d in out["decisions"]] == [(2, 16, 1)] * 2
+    for d in out["decisions"]:
+        assert set(d.detach().unique().tolist()) <= {0.0, 1.0}
+    sum(d.sum() for d in out["decisions"]).backward()
+    grads = [p.grad for n, p in model.named_parameters()
+             if ".score_predictor." in n]
+    assert grads and all(g is not None for g in grads)
+    assert any(g.abs().max() > 0 for g in grads)
+    with torch.no_grad():
+        assert torch.equal(model.eval()(x)["x_hat"], before)
 
 
 # -- the codec ----------------------------------------------------------------

@@ -266,10 +266,50 @@ def test_jax_reads_the_ports_checkpoint(tmp_path, monkeypatch):
 
 
 def test_msgpack_and_pruned_checkpoints_raise(tmp_path):
+    """A flax msgpack file raises; a pruned CC_GD export (a `.deps.json`
+    beside it) read as another model raises (read as cc_gd it loads:
+    test_pruned_export_loads_through_rd_compare)."""
     with pytest.raises(ValueError, match="reads torch files"):
         load_checkpoint(str(tmp_path / "params.msgpack"), "cnn", device="cpu")
     path = tmp_path / "pruned.pth.tar"
     (tmp_path / "pruned.pth.tar.deps.json").write_text("{}")
-    with pytest.raises(NotImplementedError,
-                       match="comes with train_gd.s prune_export"):
+    with pytest.raises(ValueError, match="a pruned cc_gd export, not a 'cnn'"):
         load_any_checkpoint(str(path), "cnn", device="cpu")
+
+
+def test_pruned_export_loads_through_rd_compare(checkpoints, tmp_path,
+                                                capsys):
+    """A small gated CC_GD (random gates, a third of its channels masked)
+    exported by train_gd's prune_export: the loader builds the ungated
+    CC_GD(deps=...) at the kept widths, whose eval forward is the gated
+    model's within 1e-5 (z's gate unmasked: masking z is approximate by
+    design); rd_compare codes the folder with it."""
+    from _torch_scale import random_gates
+    from stf_tpu_torch.models.cc_gd import GateDecorator
+    from stf_tpu_torch.training import prune_export
+
+    root, _ = checkpoints
+    gated = random_gates(port_model(13, "cc_gd"), 14)
+    z_gate = gated.h_a[7]
+    with torch.no_grad():
+        z_gate.mask.fill_(1.0)
+    _, deps = prune_export(gated, str(tmp_path))
+    path = str(tmp_path / "pruned_model.pth.tar")
+    pruned = load_any_checkpoint(path, "cc_gd", device="cpu")
+    assert not any(isinstance(m, GateDecorator) for m in pruned.modules())
+    assert deps["h_a/gate_0"] < SMALL["M"] and deps["h_a/gate_2"] == SMALL["N"]
+    x = torch.from_numpy(smooth_images(1, 64, 64, 4).astype(np.float32)
+                         / 255.0)
+    with torch.no_grad():
+        got, want = pruned(x), gated(x)
+    for k in ("y", "z"):
+        np.testing.assert_allclose(got["likelihoods"][k].numpy(),
+                                   want["likelihoods"][k].numpy(), atol=1e-5)
+    np.testing.assert_allclose(got["x_hat"].numpy(), want["x_hat"].numpy(),
+                               atol=1e-5)
+    argv = ["-a", "cc_gd", "-d", str(root / "img"), "-p", path,
+            "--baseline", str(root / "wide.json"), "--device", "cpu",
+            "--recon-path", str(tmp_path / "recon")]
+    assert rd_compare.main(argv) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["name"] == "cc_gd" and out["results"]["bpp"][0] > 0

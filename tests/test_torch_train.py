@@ -1,12 +1,14 @@
 """The port's training step against the JAX trainer on the CPU, at the
 same weights, batch and random draws.
 
-The port's sampler draws the y/z noise and STF's DropPath masks; the
-test records them and hands the same values to the JAX step through a
-test-side `monkeypatch` of `jax.random.uniform` / `jax.random.bernoulli`
-(in draw order, each call checked for its shape). Small models from
-`_torch_port.pair_from_port` at 64x64, batch 2; STF keeps its drop-path
-rate of 0.2, so its masks are live.
+The port's sampler draws the y/z noise and the Swin models' DropPath
+masks; the test records them and hands the same values to the JAX step
+through a test-side `monkeypatch` of `jax.random.uniform` /
+`jax.random.bernoulli` (`_torch_replay`: in draw order, each call checked
+for its shape). Small cnn, stf, tbc and cc from
+`_torch_port.pair_from_port` at 64x64, batch 2; STF and TBC keep their
+drop-path rate of 0.2, so their masks are live (TBC's hyper stacks draw
+none: the JAX model runs them deterministically).
 
 Tolerances, f32 on both sides with sums taken in other orders: loss
 terms rel 1e-5 (bpp, the loosest, is off by 3e-6 and 4.5e-6 for the
@@ -28,6 +30,7 @@ import torch
 
 from _torch_port import one_torch_thread  # noqa: F401 (autouse)
 from _torch_port import pair_from_port, smooth_images
+from _torch_replay import RecordingSampler, replay_draws
 from stf_tpu.layers.pallas_attention import _reference_core
 from stf_tpu.layers.win_attention import WindowAttention as JaxWindowAttention
 from stf_tpu.layers.win_attention import shifted_window_region_labels
@@ -48,62 +51,6 @@ LMBDA = 0.013
 LOSS_RTOL = 1e-5
 GRAD_TOL = 2e-4  # of each tensor's largest JAX gradient
 PARAM_RTOL = 2.5e-7  # two f32 ulps
-
-
-class RecordingSampler:
-    """Wraps the trainer's sampler and keeps a NumPy copy of each draw."""
-
-    def __init__(self, sampler):
-        self.sampler = sampler
-        self.uniform_draws, self.bernoulli_draws = [], []
-
-    def uniform(self, shape, like):
-        u = self.sampler.uniform(shape, like)
-        self.uniform_draws.append(u.numpy().copy())
-        return u
-
-    def bernoulli(self, p, shape, like):
-        m = self.sampler.bernoulli(p, shape, like)
-        self.bernoulli_draws.append((p, m.numpy().copy()))
-        return m
-
-
-def replay_draws(monkeypatch, uniforms, bernoullis):
-    """Make jax.random.uniform / bernoulli return the recorded draws in
-    order; returns the two queues, which must end empty. Flax checks each
-    parameter's shape by running its initializer under `jax.eval_shape`
-    (some initializers draw U(-1/2, 1/2) too): those calls get the real
-    functions."""
-    uq, bq = list(uniforms), list(bernoullis)
-    real = (jax.random.uniform, jax.random.bernoulli, jax.eval_shape)
-    checking = []
-
-    def eval_shape(*a, **k):
-        checking.append(1)
-        try:
-            return real[2](*a, **k)
-        finally:
-            checking.pop()
-
-    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
-        if checking:
-            return real[0](key, shape, dtype, minval, maxval)
-        assert (minval, maxval) == (-0.5, 0.5)
-        u = uq.pop(0)
-        assert tuple(shape) == u.shape, (shape, u.shape)
-        return jnp.asarray(u, dtype)
-
-    def bernoulli(key, p=0.5, shape=None):
-        if checking:
-            return real[1](key, p, shape)
-        keep, m = bq.pop(0)
-        assert tuple(shape) == m.shape and np.isclose(float(p), keep)
-        return jnp.asarray(m)
-
-    monkeypatch.setattr(jax.random, "uniform", uniform)
-    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
-    monkeypatch.setattr(jax, "eval_shape", eval_shape)
-    return uq, bq
 
 
 def _batch(seed=5):
@@ -158,17 +105,21 @@ def _jax_step(model, params, x, sampler):
         return rd, aux, g, stepped
 
     with pytest.MonkeyPatch.context() as mp:
-        uq, bq = replay_draws(mp, sampler.uniform_draws,
+        queues = replay_draws(mp, sampler.uniform_draws,
                               sampler.bernoulli_draws)
         rd, aux, grads, stepped = run(params, jnp.asarray(x))
-    assert not uq and not bq, "the JAX step drew fewer values than the port"
+    assert not any(queues), "the JAX step drew fewer values than the port"
     metrics = {"loss": float(rd.loss), "bpp_loss": float(rd.bpp_loss),
                "distortion": float(rd.distortion), "aux_loss": float(aux)}
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return metrics, as_np(grads), as_np(stepped)
 
 
-@pytest.fixture(scope="module", params=["cnn", "stf"])
+# the analysis stack's state_dict prefix, by model
+ANALYSIS = {"cnn": "g_a.", "cc": "g_a.", "stf": "layers.", "tbc": "layers."}
+
+
+@pytest.fixture(scope="module", params=["cnn", "stf", "tbc", "cc"])
 def step_pair(request):
     """One model's port step and JAX step at the same weights and draws."""
     name = request.param
@@ -218,8 +169,7 @@ def test_gradient_comparison_catches_plain_round(step_pair, monkeypatch):
     _, grads, _ = _port_step(copy.deepcopy(sp.fresh), sp.x)
     errs = _grad_errors(sp.name, grads, sp.jgrads)
     bad = [k for k, e in errs.items() if not e[0] <= GRAD_TOL * e[1]]
-    assert any(k.startswith("g_a." if sp.name == "cnn" else "layers.")
-               for k in bad)
+    assert any(k.startswith(ANALYSIS[sp.name]) for k in bad)
     assert any(k.startswith("h_a.") for k in bad)
 
 
@@ -277,9 +227,9 @@ def test_rd_and_aux_gradients_split(step_pair):
     for n, p in port.named_parameters():
         if port_state.is_aux_parameter(n):
             assert p.grad is None or not p.grad.any(), n
-    first = "g_a." if sp.name == "cnn" else "layers."
     assert any(p.grad is not None and p.grad.any()
-               for n, p in port.named_parameters() if n.startswith(first))
+               for n, p in port.named_parameters()
+               if n.startswith(ANALYSIS[sp.name]))
     state.zero_grad()
     port.aux_loss().backward()
     for n, p in port.named_parameters():
