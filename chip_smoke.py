@@ -129,7 +129,25 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-5 of the gated model's, the lane and host round trips as in
      12 (B2, B3, B4 launched), parameter counts and warm codec medians
      beside the gated model's; then `eval_model.main -a cc_gd` on the
-     export. Each phase prints its wall seconds.
+     export;
+ 14. multi-process training (`phase_parallel`), in child processes that
+     `python -m torch.distributed.run` starts (this script's `--child`
+     modes; each killed with its session and failing the smoke on an
+     overrun of PAR_TIMEOUT): (a) the trainer CLI on the full-width STF
+     (8x256x256 crops of the eval phase's PNGs) over NCCL at world size
+     1 with --ckpt-format sharded for an epoch, then resumed from its
+     save directory for one more: the first loss bit-equal to the
+     single-process CLI's at the same seed, 6 steps after the resume, B1
+     24 times a step, warm steps and the sharded save's and restore's
+     seconds; (b) two ranks sharing the card over gloo (NCCL refuses two
+     ranks on one card), DDP and --tp 2 (fully_shard): 2 steps, losses
+     within rel 1e-5 and parameters within 5e-4 of one process's steps
+     on the same global batch, B1 24 times a step, the --tp 2 state
+     saved sharded and restored bit-equal; (c) (a)'s params sidecar read
+     by `zoo.load_checkpoint` through `codec_round_trip`; (d) `python -m
+     stf_tpu_torch.utils.flops -a stf` at 256x256 on the card equal to
+     this process's CPU count, and each full-width model's count on the
+     card. Each phase prints its wall seconds.
 
 It prints each CUDA kernel's registers and spills as ptxas reports them,
 the kernels' JSON line, then the card's name and power limit as
@@ -2261,6 +2279,381 @@ def phase_train_gd(dev, smi, images):
     return rt.launches
 
 
+# the parallel phase: the trainer CLI's epochs of TRAIN_BATCH crops on the
+# Kodak PNG folder (24 train images: 3 steps an epoch), and PAR_STEPS steps
+# of two ranks; a child that overruns PAR_TIMEOUT seconds fails the smoke
+PAR_STEPS, PAR_TIMEOUT = 2, 400
+PAR_RTOL, PAR_ATOL = 1e-5, 5e-4  # tests/test_torch_parallel.py's
+
+
+def run_child(argv, timeout=PAR_TIMEOUT):
+    """Run `argv` in a session of its own; return its standard output's
+    JSON lines. On a non-zero exit or an overrun the whole session is
+    killed (torch.distributed.run's workers too) and the smoke fails."""
+    import signal
+
+    t0 = time.perf_counter()
+    p = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise AssertionError(f"{argv[:6]} overran {timeout} s:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+    if p.returncode:
+        raise AssertionError(f"{argv[:6]} exited {p.returncode}:\n"
+                             f"{out[-3000:]}\n{err[-3000:]}")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    return lines, time.perf_counter() - t0
+
+
+def torchrun(nproc, *args):
+    """argv: this script's child mode `args` under torch.distributed.run
+    with `nproc` processes on this host."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+            "--child", *args]
+
+
+def child_cli(*argv):
+    """Child mode: `recorded_cli(argv)`; rank 0 prints its record as one
+    JSON line."""
+    from stf_tpu_torch import parallel
+
+    rec = recorded_cli(argv)
+    if parallel.is_main_process():
+        print(json.dumps(rec))
+
+
+def recorded_cli(argv):
+    """`stf_tpu_torch.training.train.main(argv)` with each step's loss,
+    wall seconds and B1 launches recorded, and the sharded checkpointer's
+    save, close and restore timed: the record, with the final step and
+    the world size. The patched factories and methods are put back."""
+    import torch
+
+    from stf_tpu_torch import _native, parallel
+    from stf_tpu_torch.training import checkpoint, state as train_state
+    from stf_tpu_torch.training import train
+
+    rec = {"losses": [], "secs": [], "b1": [], "ckpt_s": {}}
+    b1 = lambda: b1_launches(_native.launch_counts)  # noqa: E731
+    # a CPU run (--device cpu) rehearses this child without a card
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+
+    def recording(factory):
+        def make(*a, **k):
+            inner, rec["inner"] = rec.get("inner"), True
+            try:
+                step = factory(*a, **k)
+            finally:
+                rec["inner"] = inner
+
+            if rec.get("inner"):  # the parallel step's own inner step
+                return step
+
+            def run(state, batch):
+                before = b1()
+                sync()
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                rec["losses"].append(float(m["loss"]))
+                sync()
+                rec["secs"].append(time.perf_counter() - t0)
+                rec["b1"].append(b1() - before)
+                return m
+            return run
+        return make
+
+    def timing(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec["ckpt_s"][name] = rec["ckpt_s"].get(name, 0.0) + (
+                time.perf_counter() - t0)
+            return out
+        return run
+
+    ck = checkpoint.ShardedCheckpointer
+    saved = [(parallel, "make_parallel_train_step"),
+             (train_state, "make_train_step")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in saved] + [
+        (ck, name, ck.__dict__[name]) for name in ("save", "close",
+                                                   "restore")]
+    for obj, name, fn in saved:
+        setattr(obj, name, (timing(name, fn) if obj is ck
+                            else recording(fn)))
+    try:
+        state = train.main(list(argv))
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    rec.pop("inner", None)
+    return dict(rec, step=state.step, world=parallel.process_count())
+
+
+def child_ranks(out_dir, lmbda):
+    """Child mode, one of two ranks sharing cuda:0 over gloo: for DDP and
+    for --tp 2 (fully_shard), PAR_STEPS steps of the full-width STF on
+    this rank's rows of smooth_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
+    seed=SEED); rank 0 writes the parameters to
+    out_dir/tp<T>/params_best.pth.tar for the parent to compare with one
+    process's: DDP's model state_dict; the --tp 2 state saved sharded
+    (rank 0 writes that sidecar from the saved files) and then restored
+    into a fresh model, mesh and TrainState, bit-equal by local shard.
+    Each rank prints one JSON line."""
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.parallel import (
+        create_mesh,
+        data_parallel_shardings,
+        initialize_distributed,
+        make_parallel_train_step,
+        parallelize,
+        process_index,
+        shard_batch,
+    )
+    from stf_tpu_torch.training import TrainState
+    from stf_tpu_torch.training.checkpoint import (
+        ShardedCheckpointer,
+        _train_state,
+    )
+    from stf_tpu_torch.zoo import create_model
+
+    dev = initialize_distributed(device="cuda", backend="gloo")
+    lmbda = float(lmbda)
+    x = torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
+                                      SEED))
+    out = {"rank": process_index(), "device": str(dev)}
+
+    def build(tp, seed):
+        mesh = create_mesh(batch_size=len(x), model=tp, device_type="cuda")
+        model = create_model("stf", seed=seed).to(dev)
+        forward = parallelize(model, mesh)
+        state = TrainState(model, dev, seed=SEED,
+                           shard=data_parallel_shardings(mesh))
+        return mesh, forward, state
+
+    for tp in (1, 2):
+        mesh, forward, state = build(tp, SEED)
+        step = make_parallel_train_step(forward, lmbda)
+        batch = shard_batch(x, mesh).to(dev)
+        r = out[f"tp{tp}"] = {"losses": [], "secs": [], "b1": []}
+        for _ in range(PAR_STEPS):
+            before = b1_launches(_native.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["losses"].append(float(step(state, batch)["loss"]))
+            torch.cuda.synchronize()
+            r["secs"].append(time.perf_counter() - t0)
+            r["b1"].append(b1_launches(_native.launch_counts) - before)
+        root = os.path.join(out_dir, f"tp{tp}")
+        if tp == 1:
+            # DDP's parameters are whole on every rank (the CLI's sharded
+            # save of a DDP run is (a)'s)
+            if process_index() == 0:
+                os.makedirs(root)
+                torch.save({k: v.cpu() for k, v
+                            in state.model.state_dict().items()},
+                           os.path.join(root, "params_best.pth.tar"))
+            continue
+        t0 = time.perf_counter()
+        ckpt = ShardedCheckpointer(root)
+        ckpt.save(state, 0, r["losses"][-1], {"model": "stf", "lmbda": lmbda,
+                                              "metric": "mse"}, True,
+                  r["losses"][-1])
+        r["save_s"] = time.perf_counter() - t0
+        ckpt.close()
+        r["landed_s"] = time.perf_counter() - t0
+        _, _, fresh = build(tp, SEED + 1)
+        t0 = time.perf_counter()
+        meta = ShardedCheckpointer(root, read_only=True).restore(fresh)
+        r["restore_s"] = time.perf_counter() - t0
+        r["restored_equal"] = (
+            same_state(local_shards(_train_state(state)),
+                       local_shards(_train_state(fresh)))
+            and meta["epoch"] == 0 and fresh.step == PAR_STEPS)
+    print(json.dumps(out))
+
+
+def local_shards(tree):
+    """A nested state dict with each sharded tensor replaced by this
+    rank's shard (for `same_state`)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to_local() if hasattr(tree, "to_local") else tree
+    if isinstance(tree, dict):
+        return {k: local_shards(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [local_shards(v) for v in tree]
+    return tree
+
+
+def phase_parallel(dev, smi, data):
+    """Multi-process training (`stf_tpu_torch.parallel`) at full width,
+    in child processes that `python -m torch.distributed.run` starts:
+    (a) the trainer CLI (`-m stf`, TRAIN_BATCH x TRAIN_SIZE crops of the
+    PNG folder `data`) at world size 1 over NCCL with --ckpt-format
+    sharded for one epoch, then resumed from its save directory for one
+    more: the first step's loss against the single-process CLI's at the
+    same seed, 6 steps after the resume, B1 24 times a step, the save and
+    restore seconds; (b) two ranks sharing this card over gloo, DDP and
+    --tp 2 (`child_ranks`): PAR_STEPS steps against this process's
+    one-process steps on the same global batch (losses rel PAR_RTOL,
+    parameters PAR_ATOL), then a sharded save restored bit-equal;
+    (c) the params sidecar of (a) loaded by `zoo.load_checkpoint` and
+    coded (`codec_round_trip`, B1-B4 launches checked); (d) `python -m
+    stf_tpu_torch.utils.flops -a stf` at TRAIN_SIZE on the card against
+    this process's CPU count, and the card's count of each full-width
+    model. Returns the round trip's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.training import TrainState, make_train_step
+    from stf_tpu_torch.utils.flops import model_flops
+    from stf_tpu_torch.zoo import create_model, load_checkpoint
+
+    lmbda = TRAIN_LMBDA["stf"]
+    steps_per_epoch = 24 // TRAIN_BATCH
+    per_step = sum(B1_CALLS["stf"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as work:
+        # (a) the CLI: NCCL at world 1, sharded format, and a resume
+        save = os.path.join(work, "save")
+        cli = ["-m", "stf", "-d", data, "--batch-size", str(TRAIN_BATCH),
+               "--test-batch-size", str(TRAIN_BATCH), "--patch-size",
+               str(TRAIN_SIZE), str(TRAIN_SIZE), "--lambda", str(lmbda),
+               "--num-workers", "4", "--log-every", "1", "--seed",
+               str(SEED), "--device", "cuda"]
+        # the single-process reference runs here: the card and the
+        # kernels are this process's already
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = recorded_cli(cli + ["-e", "1", "--save-dir",
+                                      os.path.join(work, "single")])
+        ref_s = time.perf_counter() - t0
+        (first,), first_s = run_child(torchrun(
+            1, "cli", *cli, "-e", "1", "--save-dir", save,
+            "--ckpt-format", "sharded"))
+        (second,), second_s = run_child(torchrun(
+            1, "cli", *cli, "-e", "2", "--save-dir", save, "--ckpt-format",
+            "sharded", "--checkpoint", save))
+        for tag, r, n in (("single", ref, steps_per_epoch),
+                          ("ddp", first, steps_per_epoch),
+                          ("resumed", second, steps_per_epoch)):
+            if len(r["losses"]) != n or set(r["b1"]) != {per_step}:
+                raise AssertionError(f"parallel {tag} CLI: {r}")
+        if first["world"] != 1 or second["step"] != 2 * steps_per_epoch:
+            raise AssertionError(f"parallel CLI: world {first['world']}, "
+                                 f"step after the resume {second['step']}")
+        diff = first["losses"][0] - ref["losses"][0]
+        print(f"parallel (a) trainer CLI, stf {TRAIN_BATCH}x{TRAIN_SIZE}x"
+              f"{TRAIN_SIZE}, torch.distributed.run NCCL world 1, "
+              f"--ckpt-format sharded: first loss {first['losses'][0]!r} "
+              f"against the single-process CLI's {ref['losses'][0]!r} "
+              f"(difference {diff!r}); losses {first['losses']} then "
+              f"{second['losses']} after the resume at step "
+              f"{second['step'] - steps_per_epoch}, {second['step']} steps; "
+              f"B1 {per_step} launches a step; the single-process CLI "
+              f"{ref_s:.1f} s (in this process), the children "
+              f"{first_s:.1f} / {second_s:.1f} s")
+        if diff != 0.0:
+            raise AssertionError("parallel (a): DDP at world 1 changed the "
+                                 "first step's loss")
+        warm = lambda r: float(np.median(r["secs"][1:]))  # noqa: E731
+        print(f"parallel (a) step ({smi}): single-process warm median "
+              f"{warm(ref) * 1e3:.3f} ms (steps 2-{steps_per_epoch}), DDP "
+              f"world 1 {warm(first) * 1e3:.3f} ms, after the resume "
+              f"{warm(second) * 1e3:.3f} ms; sharded save {first['ckpt_s']}"
+              f", restore {second['ckpt_s']} s (epoch 1's save and close "
+              "included in the second)")
+
+        # (b) two ranks on this card over gloo, DDP and --tp 2
+        ranks, ranks_s = run_child(torchrun(2, "ranks", work, str(lmbda)))
+        model = create_model("stf", seed=SEED)
+        state = TrainState(model, dev, seed=SEED)
+        step = make_train_step(model, lmbda)
+        x = torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
+                                          TRAIN_SIZE, SEED)).to(dev)
+        one = [float(step(state, x)["loss"]) for _ in range(PAR_STEPS)]
+        want = {k: v.cpu() for k, v in model.state_dict().items()}
+        for tp in (1, 2):
+            got = torch.load(os.path.join(work, f"tp{tp}",
+                                          "params_best.pth.tar"))
+            worst = max((got[k] - want[k]).abs().max().item() for k in want)
+            for r in ranks:
+                t = r[f"tp{tp}"]
+                if (not np.allclose(t["losses"], one, rtol=PAR_RTOL, atol=0)
+                        or worst > PAR_ATOL or set(t["b1"]) != {per_step}
+                        or not t.get("restored_equal", tp == 1)):
+                    raise AssertionError(
+                        f"parallel (b) tp {tp} rank {r['rank']}: {t} against "
+                        f"one process's losses {one}, parameters {worst}")
+            t = ranks[0][f"tp{tp}"]
+            print(f"parallel (b) two ranks on {ranks[0]['device']} over "
+                  f"gloo, {'DDP' if tp == 1 else '--tp 2 (fully_shard)'}: "
+                  f"losses {t['losses']} against one process's {one}; "
+                  f"parameters within {worst:.3g} of one process's after "
+                  f"{PAR_STEPS} steps; step seconds (rank 0; {smi}) "
+                  f"{t['secs']}" + ("" if tp == 1 else
+                  f"; sharded save {t['save_s']:.3f} s (landed with its "
+                  f"sidecar {t['landed_s']:.3f} s), restore "
+                  f"{t['restore_s']:.3f} s, bit-equal on both ranks"))
+        print(f"parallel (b) child {ranks_s:.1f} s")
+
+        # (c) the sidecar through the codec
+        sidecar = load_checkpoint(os.path.join(save, "params_best.pth.tar"),
+                                  device=dev)
+        img = (smooth_batch(2, TRAIN_SIZE, TRAIN_SIZE, SEED + 7) * 255)
+        an, hy, sy = B1_CALLS["stf"]
+        rt = codec_round_trip("parallel (c) sharded run's sidecar", sidecar,
+                              dev, img.round().astype(np.uint8),
+                              (an + hy, hy + sy))
+
+    # (d) the FLOP counter on the card against the CPU
+    (flops,), flops_s = run_child(
+        [sys.executable, os.path.abspath(__file__), "--child", "flops",
+         "stf", str(TRAIN_SIZE)])
+    cpu = model_flops(create_model("stf", seed=0), (1, TRAIN_SIZE,
+                                                   TRAIN_SIZE, 3), "cpu")
+    if flops["flops"] != cpu["flops"]:
+        raise AssertionError(f"parallel (d): card {flops} against the "
+                             f"CPU's {cpu}")
+    print(f"parallel (d) stf at {TRAIN_SIZE}x{TRAIN_SIZE}: the card's count "
+          f"{flops['flops']} FLOPs (B1 {flops['by_op']['window_attention']}) "
+          f"equals the CPU's; child {flops_s:.1f} s")
+    for name in CODEC_MODELS:
+        st = model_flops(create_model(name, seed=0),
+                         (1, TRAIN_SIZE, TRAIN_SIZE, 3), dev)
+        print(f"flops {name} at {TRAIN_SIZE}x{TRAIN_SIZE} on the card: "
+              f"{st['flops']} ({st['flops'] / 1e9:.3f} G), params "
+              f"{st['params']}, by op {st['by_op']}")
+    return rt.launches
+
+
+def child_flops(name, size):
+    """Child mode: `python -m stf_tpu_torch.utils.flops`'s main on the
+    card; prints its stats as one JSON line."""
+    from stf_tpu_torch.utils import flops
+
+    stats = flops.main(["-a", name, "--height", size, "--width", size])
+    print(json.dumps(stats))
+
+
+CHILDREN = {"cli": child_cli, "ranks": child_ranks, "flops": child_flops}
+
+
 def sm_clock_mhz():
     """The card's maximum SM clock, MHz, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -2295,6 +2688,14 @@ def ptxas_summary(log):
 def main():
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        # a child process of phase_parallel; a crash prints its stack
+        import faulthandler
+
+        faulthandler.enable()
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        CHILDREN[sys.argv[2]](*sys.argv[3:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2353,13 +2754,16 @@ def main():
         print(f"eval CLI phase launches: {eval_launches}")
         trained = {name: phase(f"train {name}", phase_train, dev, smi, name)
                    for name in ("cnn", "stf")}
+        data = training_folder(work, images)
         dy_train, dy_codec = phase(
-            "dytrain", phase_dytrain, dev, smi, trained["stf"],
-            training_folder(work, images))
+            "dytrain", phase_dytrain, dev, smi, trained["stf"], data)
         gd_codec = phase("train_gd", phase_train_gd, dev, smi, images)
+        par_codec = phase("parallel", phase_parallel, dev, smi, data)
     print(f"dytrain path launches: training {dy_train}; the distilled "
           f"DYSTF's round trip {dy_codec}")
     print(f"train_gd path launches: the pruned CC_GD's round trip {gd_codec}")
+    print(f"parallel path launches: the sharded run's sidecar's round trip "
+          f"{par_codec}")
     for row in rows:
         # B1's rows count on their model's path (the bf16 instances on the
         # bench path's or TBC's bf16 round trip's), B2-B4's on WACNN's

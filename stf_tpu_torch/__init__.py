@@ -14,10 +14,13 @@ counterpart is easy to find:
     stf_tpu_torch.zoo       registry, checkpoints, published RD curves and
                             the JAX-params -> state_dict bridge
     stf_tpu_torch.utils     metrics (PSNR, SSIM, MS-SSIM), BD-rate, the
-                            numerical policy
+                            numerical policy, FLOP / parameter counts
     stf_tpu_torch.datasets  image-folder loader and device prefetch
     stf_tpu_torch.training  RD losses, dual-Adam train state and steps,
-                            checkpoints, the trainer CLI
+                            checkpoints (single-file and sharded), the
+                            trainer CLIs
+    stf_tpu_torch.parallel  process groups, meshes, DDP and fully_shard
+                            over torch.distributed
     stf_tpu_torch.cli       the eval CLI, rd_compare and prime_cache
 
 Hand-written CUDA kernels live in `csrc/` and are built with nvcc for

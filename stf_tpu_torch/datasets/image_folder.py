@@ -79,13 +79,21 @@ class ImageFolder:
         return np.ascontiguousarray(patch)
 
     def batches(self, batch_size: int, epoch: int = 0, num_workers: int = 8,
-                drop_last: bool = True) -> Iterator[np.ndarray]:
+                drop_last: bool = True,
+                shard: Tuple[int, int] = (0, 1)) -> Iterator[np.ndarray]:
         """Yield NHWC float32 batches; at most max(2 * num_workers,
-        batch_size) decoded patches are in flight."""
+        batch_size) decoded patches are in flight. `shard=(index, count)`
+        gives each data-parallel rank a disjoint, equally sized share of
+        the epoch's order (the reference's DistributedSampler,
+        `train.py:324`); the remainder of len // count is left out."""
         rng = np.random.default_rng((self.seed, epoch))
         order = np.arange(len(self.files))
         if self.train:
             rng.shuffle(order)
+        index, count = shard
+        if count > 1:
+            per = len(order) // count
+            order = order[index * per:(index + 1) * per]
         item_rngs = [np.random.default_rng((self.seed, epoch, int(i)))
                      for i in order]
         window = max(2 * num_workers, batch_size)
@@ -114,7 +122,9 @@ def prefetch_to_device(iterator, device, size: int = 2):
     """Yield the iterator's NumPy batches as tensors on `device`. A
     background thread stages each in pinned host memory (on a CUDA
     device) and starts its non-blocking copy, up to `size` batches ahead
-    of the consumer; a loader error is raised in the consumer."""
+    of the consumer; a loader error is raised in the consumer. Each
+    data-parallel rank passes its own card: the thread copies to it and
+    makes it the thread's current device."""
     device = torch.device(device)
     pin = device.type == "cuda"
 
@@ -129,6 +139,8 @@ def prefetch_to_device(iterator, device, size: int = 2):
 
     def producer():
         try:
+            if pin and device.index is not None:
+                torch.cuda.set_device(device)
             for batch in iterator:
                 q.put(put(batch))
             q.put(end)

@@ -158,7 +158,9 @@ class EntropyBottleneck(nn.Module):
         B, C, H, W = x.shape
         values = x.permute(1, 0, 2, 3).reshape(C, 1, -1)
         if training:
-            outputs = values + sampler.uniform(values.shape, values)
+            # the images run along the last axis (B*H*W)
+            outputs = values + sampler.uniform(values.shape, values,
+                                               batch_axis=2)
         else:
             medians = self.medians()[:, None, None]
             outputs = torch.round(values - medians) + medians

@@ -15,6 +15,11 @@ under `no_grad`. One backward of loss + aux feeds the port's dual Adam
 (`TrainState`); the learning rate falls by 10x at each milestone epoch
 (reference `dytrain.py:414`). The flags are the JAX CLI's plus --device
 (default cuda: with no card it raises rather than train on the CPU).
+Under `python -m torch.distributed.run --nproc_per_node N` the student
+trains under DDP on --batch-size / N rows a rank, the frozen teacher
+replicated beside it, the Gumbel, noise and DropPath draws each rank's
+rows of the global batch's (`Sampler`); rank 0 logs and saves, as the
+JAX CLI's data mesh does (`stf_tpu/training/dytrain.py:142-148`).
 """
 
 import argparse
@@ -27,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.codec import resolve_device
+from ..parallel.mesh import mean_over_ranks
 from .losses import rate_distortion_loss
+from .state import TrainForward
 
 
 def distill_pruning_loss(student_out: Dict, teacher_out: Dict,
@@ -58,39 +65,51 @@ def distill_pruning_loss(student_out: Dict, teacher_out: Dict,
 
 
 def distill_parts(student, teacher, batch, sampler, lmbda, keep_ratio,
-                  ratio_weight=10.0, distill_weight=0.5, clf_weight=0.0):
-    """(loss, parts) of the student's training forward (noise, Gumbel and
-    DropPath draws from `sampler`) against the frozen teacher's eval
-    forward, which runs without a graph."""
-    s_out = student(batch, training=True, sampler=sampler)
+                  ratio_weight=10.0, distill_weight=0.5, clf_weight=0.0,
+                  forward=None):
+    """(loss, parts, aux) of the student's training forward (noise, Gumbel
+    and DropPath draws from `sampler`) against the frozen teacher's eval
+    forward, which runs without a graph; `forward` (default
+    `TrainForward(student)`) is the module called, e.g. the student
+    under DDP (`parallel.parallelize`)."""
+    if forward is None:
+        forward = TrainForward(student)
+    s_out, aux = forward(batch, sampler=sampler)
     with torch.no_grad():
         t_out = teacher(batch, training=False)
-    return distill_pruning_loss(s_out, t_out, batch, lmbda, keep_ratio,
-                                ratio_weight, distill_weight, clf_weight)
+    loss, parts = distill_pruning_loss(s_out, t_out, batch, lmbda,
+                                       keep_ratio, ratio_weight,
+                                       distill_weight, clf_weight)
+    return loss, parts, aux
 
 
 def make_dytrain_step(student, teacher, lmbda: float,
                       keep_ratio: Sequence[float], ratio_weight: float = 10.0,
                       distill_weight: float = 0.5,
-                      clf_weight: float = 0.0) -> Callable:
+                      clf_weight: float = 0.0, forward=None) -> Callable:
     """`step(state, batch)`: one distillation step of the student that
     `state` (a TrainState) trains: the loss of `distill_parts` plus the
     aux loss, one backward, one update. Returns the parts and `aux_loss`,
     detached (reading them syncs). The teacher is put in eval mode and
-    its parameters stop asking for gradients."""
+    its parameters stop asking for gradients. With `forward` the
+    student's parallel wrapper (`parallel.parallelize`), each rank trains
+    on its rows, the teacher replicated beside it, and the parts are
+    averaged over the ranks: the global batch's."""
     teacher.eval().requires_grad_(False)
+    reduce = (lambda parts: parts) if forward is None else mean_over_ranks
+    if forward is None:
+        forward = TrainForward(student)
 
     def step(state, batch):
-        student.train()
+        forward.train()
         state.zero_grad()
-        loss, parts = distill_parts(
+        loss, parts, aux = distill_parts(
             student, teacher, batch, state.sampler, lmbda, keep_ratio,
-            ratio_weight, distill_weight, clf_weight)
-        aux = student.aux_loss()
+            ratio_weight, distill_weight, clf_weight, forward)
         (loss + aux).backward()
         state.apply_gradients()
         parts["aux_loss"] = aux
-        return {k: v.detach() for k, v in parts.items()}
+        return reduce({k: v.detach() for k, v in parts.items()})
 
     return step
 
@@ -129,16 +148,34 @@ def main(argv=None):
     args = parse_args(argv)
 
     from ..datasets import ImageFolder, prefetch_to_device
+    from ..parallel import (
+        create_mesh,
+        data_parallel_shardings,
+        is_initialized,
+        is_main_process,
+        join_process_group,
+        parallelize,
+        process_count,
+        sync_global_devices,
+    )
     from ..zoo import create_model, load_checkpoint
     from .checkpoint import restore_checkpoint, save_checkpoint
     from .sampler import Sampler
     from .state import TrainState
 
-    device = resolve_device(args.device)
-    print(f"device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
-    student = create_model(args.model, seed=args.seed)
+    # several ranks (python -m torch.distributed.run): the student under
+    # DDP on each rank's share of the batch, the teacher replicated
+    device = join_process_group(resolve_device(args.device))
+    mesh = (create_mesh(batch_size=args.batch_size, device_type=device.type)
+            if is_initialized() else None)
+    shard = data_parallel_shardings(mesh) if mesh is not None else (0, 1)
+    main_proc = is_main_process()
+    log = print if main_proc else (lambda *a, **k: None)
+    log(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})"
+           if device.type == "cuda" else ""))
+    student = create_model(args.model, seed=args.seed).to(device)
+    forward = parallelize(student, mesh) if mesh is not None else None
     # the teacher: the non-dynamic twin (the name without `dy`), from its
     # checkpoint, else seeded weights (useful only for smoke runs)
     teacher_name = args.model[2:]
@@ -160,53 +197,60 @@ def main(argv=None):
         aux_learning_rate=args.aux_learning_rate,
         clip_max_norm=args.clip_max_norm,
         lr_milestones=[m * steps_per_epoch for m in args.milestones],
-        lr_gamma=0.1,
+        lr_gamma=0.1, shard=shard,
     )
     last_epoch, best_loss = 0, float("inf")
     if args.checkpoint and os.path.exists(args.checkpoint):
         ckpt = restore_checkpoint(args.checkpoint, state)
         last_epoch = ckpt["epoch"] + 1
         best_loss = ckpt.get("best_loss", ckpt["loss"])
-        print(f"resumed from {args.checkpoint} at epoch {last_epoch}")
+        log(f"resumed from {args.checkpoint} at epoch {last_epoch}")
     weights = (args.ratio_weight, args.distill_weight, args.clf_weight)
     step = make_dytrain_step(student, teacher, args.lmbda, keep_ratio,
-                             *weights)
+                             *weights, forward=forward)
     meta = {"model": args.model, "lmbda": args.lmbda, "metric": "mse"}
+    local_batch = args.batch_size // process_count()
 
     for epoch in range(last_epoch, args.epochs):
         t0 = time.time()
-        it = train_ds.batches(args.batch_size, epoch, args.num_workers)
+        it = train_ds.batches(local_batch, epoch, args.num_workers,
+                              shard=shard)
         for i, batch in enumerate(prefetch_to_device(it, device)):
             parts = step(state, batch)
             if i % args.log_every == 0:
                 m = {k: float(v) for k, v in parts.items()}
-                print(f"dytrain epoch {epoch} [{i}]: loss {m['loss']:.4f} "
-                      f"rd {m['rd_loss']:.4f} pred {m['pred_loss']:.5f} "
-                      f"kl {m['cls_kl']:.5f} token {m['token_kl']:.5f}")
+                log(f"dytrain epoch {epoch} [{i}]: loss {m['loss']:.4f} "
+                    f"rd {m['rd_loss']:.4f} pred {m['pred_loss']:.5f} "
+                    f"kl {m['cls_kl']:.5f} token {m['token_kl']:.5f}")
 
         # the test epoch scores the student's training forward with the
         # same criterion, without a gradient (the reference's test_epoch);
         # its draws come from a generator of their own, seeded alike each
-        # epoch, so the training draws do not depend on the test set
+        # epoch, so the training draws do not depend on the test set; the
+        # ranks' sums are averaged (equal shares)
         sampler = Sampler(torch.Generator(device=device)
-                          .manual_seed(args.seed + 1))
+                          .manual_seed(args.seed + 1), shard)
         totals, count = {}, 0
-        it = test_ds.batches(args.batch_size, 0, args.num_workers)
+        it = test_ds.batches(local_batch, 0, args.num_workers, shard=shard)
         with torch.no_grad():
             for batch in prefetch_to_device(it, device):
-                _, parts = distill_parts(student, teacher, batch, sampler,
-                                         args.lmbda, keep_ratio, *weights)
+                _, parts, _ = distill_parts(student, teacher, batch, sampler,
+                                            args.lmbda, keep_ratio, *weights,
+                                            forward=forward)
                 for k, v in parts.items():
-                    totals[k] = totals.get(k, 0.0) + float(v)
+                    totals[k] = totals.get(k, 0.0) + v.double()
                 count += 1
+        totals = {k: float(v) for k, v in mean_over_ranks(totals).items()}
         test_loss = totals.get("loss", float("inf")) / max(count, 1)
-        print(f"dytrain test epoch {epoch}: loss {test_loss:.4f} "
-              f"[{time.time() - t0:.1f}s]")
+        log(f"dytrain test epoch {epoch}: loss {test_loss:.4f} "
+            f"[{time.time() - t0:.1f}s]")
 
         is_best = test_loss < best_loss
         best_loss = min(test_loss, best_loss)
-        save_checkpoint(args.save_dir, state, epoch, test_loss, meta,
-                        is_best, best_loss)
+        if main_proc:
+            save_checkpoint(args.save_dir, state, epoch, test_loss, meta,
+                            is_best, best_loss)
+        sync_global_devices()
     return state
 
 

@@ -18,7 +18,7 @@ by `lr_gamma` at each boundary (`MultiStepLR` stepped once a step, as
 optax's schedule reads its update count).
 """
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,26 +35,65 @@ def is_aux_parameter(name: str) -> bool:
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
     """optax's clip, in place: every g becomes g / ||g|| * max_norm unless
     the global norm ||g|| is under max_norm. Returns the norm (a tensor:
-    no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    no host sync). Sharded gradients (a `fully_shard`ed model's DTensors)
+    are clipped through their local shards, the norm's partial sums
+    reduced over the mesh dims they are sharded on: one all-reduce, where
+    DTensor arithmetic would run a collective and its dispatch for every
+    tensor."""
+    if not any(_is_dtensor(g) for g in grads):
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        local = grads
+    else:
+        norm = torch.sqrt(_sharded_sum_of_squares(grads))
+        local = [g.to_local() if _is_dtensor(g) else g for g in grads]
     keep = norm < max_norm
-    for g in grads:
+    for g in local:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
+
+
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _sharded_sum_of_squares(grads):
+    """sum(g * g) over every gradient, sharded or not: each DTensor's
+    local shard summed, the sums all-reduced over the mesh dims where
+    the shards lie (for a `fully_shard`ed model every parameter has the
+    same mesh and placements), plus the plain gradients' sums."""
+    import torch.distributed as dist
+
+    plain, by_layout = [], {}
+    for g in grads:
+        if _is_dtensor(g):
+            key = (g.device_mesh, tuple(g.placements))
+            by_layout.setdefault(key, []).append(g.to_local())
+        else:
+            plain.append(g)
+    total = sum(torch.sum(g * g) for g in plain)
+    for (mesh, placements), shards in by_layout.items():
+        part = torch.stack([torch.sum(t * t) for t in shards]).sum()
+        for dim, p in enumerate(placements):
+            if p.is_shard():
+                dist.all_reduce(part, group=mesh.get_group(dim))
+        total = total + part
+    return total
 
 
 class TrainState:
     """A model with its two optimizers, the main group's schedule, the
     sampler the training forward draws from, and the step count.
 
-    The sampler's generator lives on `device` and is seeded with `seed`.
-    Construction sets the numerical policy (`use_numerical_policy`) and
+    The sampler's generator lives on `device` and is seeded with `seed`;
+    `shard` = (index, count) is this rank's share of the global batch
+    (`Sampler`): every rank draws the global batch's values and keeps its
+    rows. Construction sets the numerical policy (`use_numerical_policy`) and
     moves the model to `device`."""
 
     def __init__(self, model: torch.nn.Module, device, seed: int = 0,
                  learning_rate: float = 1e-4, aux_learning_rate: float = 1e-3,
                  clip_max_norm: float = 1.0, lr_milestones: Sequence[int] = (),
-                 lr_gamma: float = 0.1):
+                 lr_gamma: float = 0.1, shard: Tuple[int, int] = (0, 1)):
         use_numerical_policy()
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -69,7 +108,7 @@ class TrainState:
             self.optimizer, milestones=list(lr_milestones), gamma=lr_gamma
         )
         self.sampler = Sampler(
-            torch.Generator(device=self.device).manual_seed(seed)
+            torch.Generator(device=self.device).manual_seed(seed), shard
         )
         self.step = 0
 
@@ -117,19 +156,40 @@ def _metrics(rd, aux) -> Dict[str, torch.Tensor]:
             "distortion": rd.distortion.detach(), "aux_loss": aux.detach()}
 
 
-def make_train_step(model: torch.nn.Module, lmbda: float,
-                    metric: str = "mse") -> Callable:
+class TrainForward(torch.nn.Module):
+    """The model's forward and its aux loss in one call: (out, aux). A
+    parallel wrapper (DDP, `fully_shard`) sees only what runs inside
+    `forward`, and the quantiles take their gradient from the aux loss
+    alone."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, training: bool = True, sampler=None):
+        if training:
+            out = self.model(batch, training=True, sampler=sampler)
+        else:
+            out = self.model(batch, training=False)
+        return out, self.model.aux_loss()
+
+
+def make_train_step(model: Optional[torch.nn.Module], lmbda: float,
+                    metric: str = "mse",
+                    forward: Optional[torch.nn.Module] = None) -> Callable:
     """`train_step(state, batch)`: one training forward of the NHWC batch
     with noise from `state.sampler`, one backward of rd.loss + aux, one
     update. Returns the four metrics as device tensors (reading them
-    syncs)."""
+    syncs). `forward` (default `TrainForward(model)`) is the module
+    called, e.g. `parallel.parallelize`'s wrapper."""
+    if forward is None:
+        forward = TrainForward(model)
 
     def train_step(state: TrainState, batch: torch.Tensor):
-        model.train()
+        forward.train()
         state.zero_grad()
-        out = model(batch, training=True, sampler=state.sampler)
+        out, aux = forward(batch, sampler=state.sampler)
         rd = rate_distortion_loss(out, batch, lmbda, metric)
-        aux = model.aux_loss()
         (rd.loss + aux).backward()
         state.apply_gradients()
         return _metrics(rd, aux)
@@ -137,20 +197,23 @@ def make_train_step(model: torch.nn.Module, lmbda: float,
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module, lmbda: float,
-                   metric: str = "mse") -> Callable:
+def make_eval_step(model: Optional[torch.nn.Module], lmbda: float,
+                   metric: str = "mse",
+                   forward: Optional[torch.nn.Module] = None) -> Callable:
     """`eval_step(batch)`: the rounding forward in eval mode, no gradient;
-    the same four metrics."""
+    the same four metrics. `forward` as in `make_train_step`."""
+    if forward is None:
+        forward = TrainForward(model)
 
     def eval_step(batch: torch.Tensor):
-        was_training = model.training
-        model.eval()
+        was_training = forward.training
+        forward.eval()
         try:
             with torch.no_grad():
-                out = model(batch, training=False)
-                rd = rate_distortion_loss(out, batch, lmbda, metric)
-                return _metrics(rd, model.aux_loss())
+                out, aux = forward(batch, training=False)
+                return _metrics(rate_distortion_loss(out, batch, lmbda,
+                                                     metric), aux)
         finally:
-            model.train(was_training)
+            forward.train(was_training)
 
     return eval_step

@@ -45,9 +45,15 @@ def save_checkpoint(path: str, model_name: str, model,
                     model_kwargs: Optional[dict] = None) -> None:
     """Write `model`'s state_dict to `path` and the sidecar `path.json`
     naming the registry model and its constructor kwargs."""
+    save_state_dict(path, model_name, model.state_dict(), model_kwargs)
+
+
+def save_state_dict(path: str, model_name: str, state_dict,
+                    model_kwargs: Optional[dict] = None) -> None:
+    """`save_checkpoint` for a state_dict already in hand (e.g. gathered
+    from a sharded model)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
     with open(path + ".json", "w") as f:
         json.dump({"model": model_name, "kwargs": model_kwargs or {}}, f)
 

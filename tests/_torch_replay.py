@@ -19,8 +19,8 @@ class RecordingSampler:
         self.uniform_draws, self.bernoulli_draws = [], []
         self.gumbel_draws = []
 
-    def uniform(self, shape, like):
-        u = self.sampler.uniform(shape, like)
+    def uniform(self, shape, like, batch_axis=0):
+        u = self.sampler.uniform(shape, like, batch_axis)
         self.uniform_draws.append(u.numpy().copy())
         return u
 

@@ -773,8 +773,9 @@ class _Replay:
         assert k == kind
         return t.to(like.device)
 
-    def uniform(self, shape, like):
-        return self._next("u", lambda: self.sampler.uniform(shape, like), like)
+    def uniform(self, shape, like, batch_axis=0):
+        return self._next(
+            "u", lambda: self.sampler.uniform(shape, like, batch_axis), like)
 
     def bernoulli(self, p, shape, like):
         return self._next("b", lambda: self.sampler.bernoulli(p, shape, like),
@@ -1237,3 +1238,23 @@ def test_pruned_export_round_trip(dev, tmp_path):
         assert torch.equal(f, s) and torch.equal(w, s) and torch.equal(h, s)
     assert torch.equal(fused["x_hat"], walk["x_hat"])
     assert torch.equal(hdec["x_hat"], fused["x_hat"])
+
+
+@pytest.mark.parametrize("name,config", [("cnn", {}),
+                                         ("stf", "STF_SMALL")])
+def test_flop_count_on_the_card_equals_the_cpu(dev, name, config):
+    """`utils.flops.model_flops` on the card, where B1's launch is
+    invisible to torch's counter and is counted from its shapes, equals
+    the CPU's count, where B1's plain matmuls are taken out (the
+    full-width cnn and the small STF at 64x64)."""
+    import _torch_configs
+    from stf_tpu_torch.utils.flops import model_flops
+    from stf_tpu_torch.zoo import models
+
+    kwargs = getattr(_torch_configs, config) if config else {}
+    cpu = model_flops(models[name](**kwargs), (1, 64, 64, 3), "cpu")
+    card = model_flops(models[name](**kwargs), (1, 64, 64, 3), dev)
+    assert card["flops"] == cpu["flops"]
+    assert card["by_op"]["window_attention"] == cpu["by_op"][
+        "window_attention"] > 0
+    assert card["by_op"]["convolution"] == cpu["by_op"]["convolution"]
