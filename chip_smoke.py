@@ -134,16 +134,20 @@ Phases (any failure exits non-zero; nothing is caught):
      `python -m torch.distributed.run` starts (this script's `--child`
      modes; each killed with its session and failing the smoke on an
      overrun of PAR_TIMEOUT): (a) the trainer CLI on the full-width STF
-     (8x256x256 crops of the eval phase's PNGs) over NCCL at world size
-     1 with --ckpt-format sharded for an epoch, then resumed from its
-     save directory for one more: the first loss bit-equal to the
-     single-process CLI's at the same seed, 6 steps after the resume, B1
-     24 times a step, warm steps and the sharded save's and restore's
-     seconds; (b) two ranks sharing the card over gloo (NCCL refuses two
-     ranks on one card), DDP and --tp 2 (fully_shard): 2 steps, losses
-     within rel 1e-5 and parameters within 5e-4 of one process's steps
-     on the same global batch, B1 24 times a step, the --tp 2 state
-     saved sharded and restored bit-equal; (c) (a)'s params sidecar read
+     (8x256x256 crops of the eval phase's PNGs, each linked twice: 6
+     steps an epoch) over NCCL at world size 1 with --ckpt-format sharded
+     for an epoch, then resumed from its save directory for one more:
+     the first loss bit-equal to the single-process CLI's at the same
+     seed, 6 steps after the resume, B1 24 times a step, the 5 warm
+     steps' median and spread, the sharded save's, landing's, sidecar
+     read-backs' and restore's seconds; (b) two ranks sharing the card
+     over gloo (NCCL refuses two ranks on one card), DDP and --tp 2
+     (fully_shard): 6 timed steps, the first 2 losses within rel 1e-5 of
+     one process's steps on the same global batch, after the first
+     update the parameters within 5e-4 and Adam's first moments within
+     1e-3 of each tensor's largest entry, B1 24 times a step, the --tp 2
+     state saved sharded and restored bit-equal, its sidecar equal to
+     the ranks' last parameters; (c) (a)'s params sidecar read
      by `zoo.load_checkpoint` through `codec_round_trip`; (d) `python -m
      stf_tpu_torch.utils.flops -a stf` at 256x256 on the card equal to
      this process's CPU count, and each full-width model's count on the
@@ -2280,10 +2284,17 @@ def phase_train_gd(dev, smi, images):
 
 
 # the parallel phase: the trainer CLI's epochs of TRAIN_BATCH crops on the
-# Kodak PNG folder (24 train images: 3 steps an epoch), and PAR_STEPS steps
-# of two ranks; a child that overruns PAR_TIMEOUT seconds fails the smoke
-PAR_STEPS, PAR_TIMEOUT = 2, 400
-PAR_RTOL, PAR_ATOL = 1e-5, 5e-4  # tests/test_torch_parallel.py's
+# Kodak PNGs, each linked twice (48 train images: 6 steps an epoch, the
+# first cold), and PAR_STEPS steps of two ranks; a child that overruns
+# PAR_TIMEOUT seconds fails the smoke
+PAR_STEPS, PAR_TIMEOUT = 6, 400
+# tests/test_torch_parallel.py's tolerances: losses rel PAR_RTOL, the
+# parameters after the first update within PAR_ATOL, and Adam's first
+# moment after it (0.1 x the averaged, clipped gradient) within
+# PAR_MOMENT_RTOL of each tensor's largest entry; the losses of the first
+# PAR_CHECKED steps are held to one process's (later ones drift: Adam's
+# sign-like first steps flip on gradients near zero)
+PAR_RTOL, PAR_ATOL, PAR_MOMENT_RTOL, PAR_CHECKED = 1e-5, 5e-4, 1e-3, 2
 
 
 def run_child(argv, timeout=PAR_TIMEOUT):
@@ -2333,8 +2344,9 @@ def child_cli(*argv):
 def recorded_cli(argv):
     """`stf_tpu_torch.training.train.main(argv)` with each step's loss,
     wall seconds and B1 launches recorded, and the sharded checkpointer's
-    save, close and restore timed: the record, with the final step and
-    the world size. The patched factories and methods are put back."""
+    save, close, restore and sidecar read-back timed: the record, with
+    the final step and the world size. The patched factories and methods
+    are put back."""
     import torch
 
     from stf_tpu_torch import _native, parallel
@@ -2347,29 +2359,21 @@ def recorded_cli(argv):
     sync = (torch.cuda.synchronize if torch.cuda.is_available()
             else lambda: None)
 
-    def recording(factory):
-        def make(*a, **k):
-            inner, rec["inner"] = rec.get("inner"), True
-            try:
-                step = factory(*a, **k)
-            finally:
-                rec["inner"] = inner
-
-            if rec.get("inner"):  # the parallel step's own inner step
-                return step
-
-            def run(state, batch):
-                before = b1()
-                sync()
-                t0 = time.perf_counter()
-                m = step(state, batch)
-                rec["losses"].append(float(m["loss"]))
-                sync()
-                rec["secs"].append(time.perf_counter() - t0)
-                rec["b1"].append(b1() - before)
-                return m
-            return run
-        return make
+    def recording(step):
+        """`step` recorded; the parallel step records its whole (its
+        metrics averaged over the ranks) in place of the inner step's."""
+        def run(state, batch):
+            before = b1()
+            sync()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            rec["losses"].append(float(m["loss"]))
+            sync()
+            rec["secs"].append(time.perf_counter() - t0)
+            rec["b1"].append(b1() - before)
+            return m
+        run.inner = step
+        return run
 
     def timing(name, fn):
         def run(*a, **k):
@@ -2380,34 +2384,72 @@ def recorded_cli(argv):
             return out
         return run
 
+    make_step, make_parallel = (train_state.make_train_step,
+                                parallel.make_parallel_train_step)
     ck = checkpoint.ShardedCheckpointer
-    saved = [(parallel, "make_parallel_train_step"),
-             (train_state, "make_train_step")]
-    saved = [(obj, name, getattr(obj, name)) for obj, name in saved] + [
+    saved = [(train_state, "make_train_step", make_step),
+             (parallel, "make_parallel_train_step", make_parallel)] + [
         (ck, name, ck.__dict__[name]) for name in ("save", "close",
-                                                   "restore")]
-    for obj, name, fn in saved:
-        setattr(obj, name, (timing(name, fn) if obj is ck
-                            else recording(fn)))
+                                                   "restore",
+                                                   "_write_sidecar")]
+    train_state.make_train_step = lambda *a, **k: recording(
+        make_step(*a, **k))
+    parallel.make_parallel_train_step = lambda step: recording(
+        make_parallel(step.inner))
+    for name in ("save", "close", "restore", "_write_sidecar"):
+        setattr(ck, name, timing(name, ck.__dict__[name]))
     try:
         state = train.main(list(argv))
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    rec.pop("inner", None)
     return dict(rec, step=state.step, world=parallel.process_count())
+
+
+def first_moments(state):
+    """{parameter name: Adam's first moment} of both optimizers of a
+    TrainState, on this rank (a sharded moment's local shard)."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        opt = (state.optimizer if p in state.optimizer.state
+               else state.aux_optimizer)
+        out[name] = opt.state[p]["exp_avg"]
+    return out
+
+
+def rank_record(named):
+    """{name: CPU tensor} of a rank's tensors (a sharded one's local
+    shard) and the names of the sharded ones, for `join_ranks`."""
+    return {"tensors": {k: local_shards(v).detach().to("cpu", copy=True)
+                        for k, v in named.items()},
+            "sharded": sorted(k for k, v in named.items()
+                              if hasattr(v, "to_local"))}
+
+
+def join_ranks(records):
+    """{name: whole tensor} from every rank's `rank_record`: sharded
+    entries (fully_shard's dim 0) joined in rank order, whole ones rank
+    0's."""
+    import torch
+
+    first = records[0]
+    return {k: (torch.cat([r["tensors"][k] for r in records])
+                if k in first["sharded"] else v)
+            for k, v in first["tensors"].items()}
 
 
 def child_ranks(out_dir, lmbda):
     """Child mode, one of two ranks sharing cuda:0 over gloo: for DDP and
     for --tp 2 (fully_shard), PAR_STEPS steps of the full-width STF on
     this rank's rows of smooth_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
-    seed=SEED); rank 0 writes the parameters to
-    out_dir/tp<T>/params_best.pth.tar for the parent to compare with one
-    process's: DDP's model state_dict; the --tp 2 state saved sharded
-    (rank 0 writes that sidecar from the saved files) and then restored
-    into a fresh model, mesh and TrainState, bit-equal by local shard.
-    Each rank prints one JSON line."""
+    seed=SEED), each timed. Rank 0 (each rank with --tp 2) writes
+    out_dir/tp<T>/rank<R>.pt: its parameters and first moments after the
+    first step (local shards with --tp 2, no collective), and with --tp 2
+    its parameters after the last. The
+    --tp 2 state is then saved sharded (its sidecar read-back timed
+    apart from the save's landing) and restored into a fresh model, mesh
+    and TrainState, bit-equal by local shard. Each rank prints one JSON
+    line."""
     import torch
 
     from stf_tpu_torch import _native
@@ -2420,7 +2462,7 @@ def child_ranks(out_dir, lmbda):
         process_index,
         shard_batch,
     )
-    from stf_tpu_torch.training import TrainState
+    from stf_tpu_torch.training import TrainState, make_train_step
     from stf_tpu_torch.training.checkpoint import (
         ShardedCheckpointer,
         _train_state,
@@ -2431,7 +2473,8 @@ def child_ranks(out_dir, lmbda):
     lmbda = float(lmbda)
     x = torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE,
                                       SEED))
-    out = {"rank": process_index(), "device": str(dev)}
+    rank = process_index()
+    out = {"rank": rank, "device": str(dev)}
 
     def build(tp, seed):
         mesh = create_mesh(batch_size=len(x), model=tp, device_type="cuda")
@@ -2443,10 +2486,11 @@ def child_ranks(out_dir, lmbda):
 
     for tp in (1, 2):
         mesh, forward, state = build(tp, SEED)
-        step = make_parallel_train_step(forward, lmbda)
+        step = make_parallel_train_step(make_train_step(forward, lmbda))
         batch = shard_batch(x, mesh).to(dev)
         r = out[f"tp{tp}"] = {"losses": [], "secs": [], "b1": []}
-        for _ in range(PAR_STEPS):
+        saved = {}
+        for i in range(PAR_STEPS):
             before = b1_launches(_native.launch_counts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2454,24 +2498,38 @@ def child_ranks(out_dir, lmbda):
             torch.cuda.synchronize()
             r["secs"].append(time.perf_counter() - t0)
             r["b1"].append(b1_launches(_native.launch_counts) - before)
+            if i == 0:
+                saved["params1"] = rank_record(dict(
+                    state.model.named_parameters()))
+                saved["moments1"] = rank_record(first_moments(state))
         root = os.path.join(out_dir, f"tp{tp}")
+        os.makedirs(root, exist_ok=True)
+        if tp == 2:
+            saved["params"] = rank_record(dict(
+                state.model.named_parameters()))
+        if tp == 2 or rank == 0:  # DDP's ranks hold the same
+            torch.save(saved, os.path.join(root, f"rank{rank}.pt"))
+        del saved
         if tp == 1:
-            # DDP's parameters are whole on every rank (the CLI's sharded
-            # save of a DDP run is (a)'s)
-            if process_index() == 0:
-                os.makedirs(root)
-                torch.save({k: v.cpu() for k, v
-                            in state.model.state_dict().items()},
-                           os.path.join(root, "params_best.pth.tar"))
+            # the CLI's sharded save of a DDP run is (a)'s
             continue
-        t0 = time.perf_counter()
         ckpt = ShardedCheckpointer(root)
+        sidecar_s = []
+
+        def timed_sidecar(*a, _write=ckpt._write_sidecar):
+            t0 = time.perf_counter()
+            _write(*a)
+            sidecar_s.append(time.perf_counter() - t0)
+
+        ckpt._write_sidecar = timed_sidecar
+        t0 = time.perf_counter()
         ckpt.save(state, 0, r["losses"][-1], {"model": "stf", "lmbda": lmbda,
                                               "metric": "mse"}, True,
                   r["losses"][-1])
         r["save_s"] = time.perf_counter() - t0
         ckpt.close()
-        r["landed_s"] = time.perf_counter() - t0
+        r["landed_s"] = time.perf_counter() - t0 - sum(sidecar_s)
+        r["sidecar_s"] = sum(sidecar_s)
         _, _, fresh = build(tp, SEED + 1)
         t0 = time.perf_counter()
         meta = ShardedCheckpointer(root, read_only=True).restore(fresh)
@@ -2497,41 +2555,73 @@ def local_shards(tree):
     return tree
 
 
+def parallel_folder(root, data):
+    """An ImageFolder root with every train image of `data` linked twice
+    and its test images once."""
+    par = os.path.join(root, "parallel_folder")
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(par, split))
+        for name in sorted(os.listdir(os.path.join(data, split))):
+            src = os.path.realpath(os.path.join(data, split, name))
+            copies = ("a_", "b_") if split == "train" else ("",)
+            for prefix in copies:
+                os.symlink(src, os.path.join(par, split, prefix + name))
+    return par
+
+
+def spread(secs):
+    """'median ms (min-max, n warm steps)' of steps after the first."""
+    import numpy as np
+
+    warm = np.asarray(secs[1:]) * 1e3
+    return (f"{np.median(warm):.3f} ms ({warm.min():.3f}-{warm.max():.3f}, "
+            f"{len(warm)} warm steps)")
+
+
 def phase_parallel(dev, smi, data):
     """Multi-process training (`stf_tpu_torch.parallel`) at full width,
     in child processes that `python -m torch.distributed.run` starts:
-    (a) the trainer CLI (`-m stf`, TRAIN_BATCH x TRAIN_SIZE crops of the
-    PNG folder `data`) at world size 1 over NCCL with --ckpt-format
+    (a) the trainer CLI (`-m stf`, TRAIN_BATCH x TRAIN_SIZE crops of
+    `parallel_folder`) at world size 1 over NCCL with --ckpt-format
     sharded for one epoch, then resumed from its save directory for one
     more: the first step's loss against the single-process CLI's at the
-    same seed, 6 steps after the resume, B1 24 times a step, the save and
-    restore seconds; (b) two ranks sharing this card over gloo, DDP and
-    --tp 2 (`child_ranks`): PAR_STEPS steps against this process's
-    one-process steps on the same global batch (losses rel PAR_RTOL,
-    parameters PAR_ATOL), then a sharded save restored bit-equal;
-    (c) the params sidecar of (a) loaded by `zoo.load_checkpoint` and
-    coded (`codec_round_trip`, B1-B4 launches checked); (d) `python -m
-    stf_tpu_torch.utils.flops -a stf` at TRAIN_SIZE on the card against
-    this process's CPU count, and the card's count of each full-width
-    model. Returns the round trip's launches."""
+    same seed, the step count after the resume, B1 24 times a step, the
+    warm steps' median and spread, the save, landing, sidecar read-back
+    and restore seconds; (b) two ranks sharing this card over gloo, DDP
+    and --tp 2 (`child_ranks`): PAR_STEPS timed steps, the first
+    PAR_CHECKED losses against this process's one-process steps on the
+    same global batch (rel PAR_RTOL), and after the first update the
+    parameters (PAR_ATOL) and Adam's first moments (PAR_MOMENT_RTOL);
+    then the --tp 2 state saved sharded, restored bit-equal, its sidecar
+    equal to the ranks' last parameters; (c) the params sidecar of (a)
+    loaded by `zoo.load_checkpoint` and coded (`codec_round_trip`, B1-B4
+    launches checked); (d) `python -m stf_tpu_torch.utils.flops -a stf`
+    at TRAIN_SIZE on the card against this process's CPU count, and the
+    card's count of each full-width model. Returns the round trip's
+    launches."""
     import contextlib
     import io
+    import shutil
     import tempfile
 
     import numpy as np
     import torch
 
     from stf_tpu_torch.training import TrainState, make_train_step
+    from stf_tpu_torch.training.state import is_aux_parameter
     from stf_tpu_torch.utils.flops import model_flops
     from stf_tpu_torch.zoo import create_model, load_checkpoint
 
     lmbda = TRAIN_LMBDA["stf"]
-    steps_per_epoch = 24 // TRAIN_BATCH
     per_step = sum(B1_CALLS["stf"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as work:
         # (a) the CLI: NCCL at world 1, sharded format, and a resume
         save = os.path.join(work, "save")
-        cli = ["-m", "stf", "-d", data, "--batch-size", str(TRAIN_BATCH),
+        folder = parallel_folder(work, data)
+        epoch_steps = len(os.listdir(os.path.join(folder, "train"))) // (
+            TRAIN_BATCH)
+        cli = ["-m", "stf", "-d", folder,
+               "--batch-size", str(TRAIN_BATCH),
                "--test-batch-size", str(TRAIN_BATCH), "--patch-size",
                str(TRAIN_SIZE), str(TRAIN_SIZE), "--lambda", str(lmbda),
                "--num-workers", "4", "--log-every", "1", "--seed",
@@ -2543,18 +2633,18 @@ def phase_parallel(dev, smi, data):
             ref = recorded_cli(cli + ["-e", "1", "--save-dir",
                                       os.path.join(work, "single")])
         ref_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(work, "single"))  # disk: ~2.4 GB
         (first,), first_s = run_child(torchrun(
             1, "cli", *cli, "-e", "1", "--save-dir", save,
             "--ckpt-format", "sharded"))
         (second,), second_s = run_child(torchrun(
             1, "cli", *cli, "-e", "2", "--save-dir", save, "--ckpt-format",
             "sharded", "--checkpoint", save))
-        for tag, r, n in (("single", ref, steps_per_epoch),
-                          ("ddp", first, steps_per_epoch),
-                          ("resumed", second, steps_per_epoch)):
-            if len(r["losses"]) != n or set(r["b1"]) != {per_step}:
+        for tag, r in (("single", ref), ("ddp", first), ("resumed", second)):
+            if (len(r["losses"]) != epoch_steps
+                    or set(r["b1"]) != {per_step}):
                 raise AssertionError(f"parallel {tag} CLI: {r}")
-        if first["world"] != 1 or second["step"] != 2 * steps_per_epoch:
+        if first["world"] != 1 or second["step"] != 2 * epoch_steps:
             raise AssertionError(f"parallel CLI: world {first['world']}, "
                                  f"step after the resume {second['step']}")
         diff = first["losses"][0] - ref["losses"][0]
@@ -2564,52 +2654,87 @@ def phase_parallel(dev, smi, data):
               f"against the single-process CLI's {ref['losses'][0]!r} "
               f"(difference {diff!r}); losses {first['losses']} then "
               f"{second['losses']} after the resume at step "
-              f"{second['step'] - steps_per_epoch}, {second['step']} steps; "
+              f"{second['step'] - epoch_steps}, {second['step']} steps; "
               f"B1 {per_step} launches a step; the single-process CLI "
               f"{ref_s:.1f} s (in this process), the children "
               f"{first_s:.1f} / {second_s:.1f} s")
         if diff != 0.0:
             raise AssertionError("parallel (a): DDP at world 1 changed the "
                                  "first step's loss")
-        warm = lambda r: float(np.median(r["secs"][1:]))  # noqa: E731
-        print(f"parallel (a) step ({smi}): single-process warm median "
-              f"{warm(ref) * 1e3:.3f} ms (steps 2-{steps_per_epoch}), DDP "
-              f"world 1 {warm(first) * 1e3:.3f} ms, after the resume "
-              f"{warm(second) * 1e3:.3f} ms; sharded save {first['ckpt_s']}"
-              f", restore {second['ckpt_s']} s (epoch 1's save and close "
-              "included in the second)")
+        ck = lambda r: {k: round(v, 3)  # noqa: E731
+                        for k, v in sorted(r["ckpt_s"].items())}
+        print(f"parallel (a) step ({smi}): single process "
+              f"{spread(ref['secs'])}; DDP world 1 {spread(first['secs'])}; "
+              f"after the resume {spread(second['secs'])}; sharded "
+              f"checkpointer seconds (save = start of the async save and "
+              f"the wait for the previous; close = the last landing and "
+              f"its sidecar; _write_sidecar = rank 0's read-backs, inside "
+              f"save and close): first run {ck(first)}, resumed run "
+              f"{ck(second)}")
 
         # (b) two ranks on this card over gloo, DDP and --tp 2
         ranks, ranks_s = run_child(torchrun(2, "ranks", work, str(lmbda)))
+        ranks.sort(key=lambda r: r["rank"])  # printed in either order
         model = create_model("stf", seed=SEED)
         state = TrainState(model, dev, seed=SEED)
         step = make_train_step(model, lmbda)
         x = torch.from_numpy(smooth_batch(TRAIN_BATCH, TRAIN_SIZE,
                                           TRAIN_SIZE, SEED)).to(dev)
-        one = [float(step(state, x)["loss"]) for _ in range(PAR_STEPS)]
-        want = {k: v.cpu() for k, v in model.state_dict().items()}
+        one = [float(step(state, x)["loss"])]
+        want_params = {k: v.detach().to("cpu", copy=True)
+                       for k, v in model.named_parameters()}
+        want_moments = {k: v.to("cpu", copy=True)
+                        for k, v in first_moments(state).items()}
+        one += [float(step(state, x)["loss"])
+                for _ in range(PAR_CHECKED - 1)]
+        clipped = float(sum(torch.sum((m.double() / 0.1) ** 2)
+                            for k, m in want_moments.items()
+                            if not is_aux_parameter(k)) ** 0.5)
         for tp in (1, 2):
-            got = torch.load(os.path.join(work, f"tp{tp}",
-                                          "params_best.pth.tar"))
-            worst = max((got[k] - want[k]).abs().max().item() for k in want)
+            recs = [torch.load(os.path.join(work, f"tp{tp}", f"rank{i}.pt"))
+                    for i in range(tp)]
+            params = join_ranks([r["params1"] for r in recs])
+            moments = join_ranks([r["moments1"] for r in recs])
+            p_gap = max((params[k] - want_params[k]).abs().max().item()
+                        for k in want_params)
+            m_gap = max(((moments[k] - want_moments[k]).abs().max()
+                         / want_moments[k].abs().max().clamp_min(1e-30))
+                        .item() for k in want_moments)
+            bad = p_gap > PAR_ATOL or m_gap > PAR_MOMENT_RTOL
             for r in ranks:
                 t = r[f"tp{tp}"]
-                if (not np.allclose(t["losses"], one, rtol=PAR_RTOL, atol=0)
-                        or worst > PAR_ATOL or set(t["b1"]) != {per_step}
-                        or not t.get("restored_equal", tp == 1)):
-                    raise AssertionError(
-                        f"parallel (b) tp {tp} rank {r['rank']}: {t} against "
-                        f"one process's losses {one}, parameters {worst}")
+                bad = bad or (
+                    not np.allclose(t["losses"][:PAR_CHECKED], one,
+                                    rtol=PAR_RTOL, atol=0)
+                    or set(t["b1"]) != {per_step}
+                    or not t.get("restored_equal", tp == 1))
             t = ranks[0][f"tp{tp}"]
+            if tp == 2:
+                last = join_ranks([r["params"] for r in recs])
+                side = torch.load(os.path.join(work, "tp2",
+                                               "params_best.pth.tar"))
+                bad = bad or not all(torch.equal(side[k], last[k])
+                                     for k in last)
+            if bad:
+                raise AssertionError(
+                    f"parallel (b) tp {tp}: {ranks} against one process's "
+                    f"losses {one}; parameters after the first update "
+                    f"within {p_gap}, first moments {m_gap}")
             print(f"parallel (b) two ranks on {ranks[0]['device']} over "
                   f"gloo, {'DDP' if tp == 1 else '--tp 2 (fully_shard)'}: "
-                  f"losses {t['losses']} against one process's {one}; "
-                  f"parameters within {worst:.3g} of one process's after "
-                  f"{PAR_STEPS} steps; step seconds (rank 0; {smi}) "
-                  f"{t['secs']}" + ("" if tp == 1 else
-                  f"; sharded save {t['save_s']:.3f} s (landed with its "
-                  f"sidecar {t['landed_s']:.3f} s), restore "
-                  f"{t['restore_s']:.3f} s, bit-equal on both ranks"))
+                  f"losses {t['losses']}, the first {PAR_CHECKED} against "
+                  f"one process's {one}; after the first update the "
+                  f"parameters within {p_gap:.3g} and the first moments "
+                  f"within {m_gap:.3g} of each tensor's largest (one "
+                  f"process's clipped gradient norm {clipped:.6f}); step "
+                  f"(rank 0; {smi}) {spread(t['secs'])}, all "
+                  f"{[round(v, 4) for v in t['secs']]} s"
+                  + ("" if tp == 1 else
+                     f"; sharded save {t['save_s']:.3f} s, landed "
+                     f"{t['landed_s']:.3f} s without rank 0's sidecar "
+                     f"read-backs {t['sidecar_s']:.3f} s, restore "
+                     f"{t['restore_s']:.3f} s, bit-equal on both ranks, "
+                     f"the sidecar equal to the ranks' last parameters"))
         print(f"parallel (b) child {ranks_s:.1f} s")
 
         # (c) the sidecar through the codec

@@ -11,8 +11,9 @@ Mapping (the JAX package's name -> the port):
                                     (`data_parallel_shardings`,
                                     `shard_batch`, `ImageFolder.batches(
                                     shard=...)`)
-    jit over the sharded batch   -> DDP over the ranks (`parallelize`,
-                                    `make_parallel_train_step`)
+    jit over the sharded batch   -> DDP over the ranks (`parallelize`),
+                                    the metrics averaged over them
+                                    (`make_parallel_train_step`)
     tensor_parallel_shardings    -> FSDP2 `fully_shard` on the 2-D mesh
     process_index() == 0, process_count(), sync_global_devices
                                  -> rank 0, the world size, dist.barrier()
@@ -34,7 +35,7 @@ semantics: the step is the data-parallel step.
 
 import os
 from datetime import timedelta
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -119,19 +120,19 @@ def sync_global_devices():
         dist.barrier()
 
 
-def create_mesh(data: Optional[int] = None, batch_size: Optional[int] = None,
-                model: int = 1, device_type: str = "cuda"):
+def create_mesh(batch_size: Optional[int] = None, model: int = 1,
+                device_type: str = "cuda"):
     """DeviceMesh over every rank: 1-D `("data",)`, or 2-D `("data",
     "model")` when `model` > 1 (parameters and moments sharded over
-    `model`, see `parallelize`). Raises ValueError when data x model is
-    not the world size, or when `batch_size` (the global batch) does not
-    split into one equal share a rank."""
+    `model`, see `parallelize`); the data dim is the world size over
+    `model`. Raises ValueError when `model` does not divide the world
+    size, or when `batch_size` (the global batch) does not split into
+    one equal share a rank."""
     from torch.distributed.device_mesh import init_device_mesh
 
     world = process_count()
     model = max(int(model), 1)
-    if data is None:
-        data = world // model
+    data = world // model
     if data < 1 or data * model != world:
         raise ValueError(
             f"a {max(data, 1)}x{model} mesh needs {max(data, 1) * model} "
@@ -205,13 +206,10 @@ def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return dict(zip(keys, stacked.unbind()))
 
 
-def make_parallel_train_step(forward: torch.nn.Module, lmbda: float,
-                             metric: str = "mse"):
-    """`step(state, batch)` over `parallelize`'s forward: each rank's
-    training forward of its rows, one backward (the wrapper averages the
-    gradients over the ranks), one update; the metrics averaged over the
-    ranks, i.e. those of the global batch."""
-    from ..training.state import make_train_step
-
-    step = make_train_step(None, lmbda, metric, forward=forward)
-    return lambda state, batch: mean_over_ranks(step(state, batch))
+def make_parallel_train_step(train_step: Callable) -> Callable:
+    """`train_step` (`make_train_step` or `make_dytrain_step` of
+    `parallelize`'s wrapper: each rank's forward of its rows, one
+    backward whose gradients the wrapper averages over the ranks, one
+    update) with its metrics averaged over the ranks, i.e. those of the
+    global batch."""
+    return lambda state, batch: mean_over_ranks(train_step(state, batch))

@@ -89,9 +89,13 @@ class ShardedCheckpointer:
     fix, `stf_tpu/training/checkpoint.py:100-108`). A namespace's next
     save waits for its previous one; `close()` drains both. The JAX
     package gathers the parameters for its sidecars at each save; here
-    rank 0 reads them back from the landed save's files, off the
-    training's path and with no collective (a shared file system, which
-    the collective save assumes too).
+    rank 0 reads them back from the landed save's files with no
+    collective (a shared file system, which the collective save assumes
+    too). That read-back (`_write_sidecar`) runs when the namespace's
+    next save starts, or in `close()`: until then a sidecar holds the
+    namespace's previous save, one epoch behind its newest step
+    directory, and while rank 0 reads, the other ranks wait for it in
+    that next save's first collective.
     `read_only=True` opens a foreign run's directory for `restore` only:
     nothing is created or removed there."""
 
@@ -128,7 +132,6 @@ class ShardedCheckpointer:
         a sharded model is never gathered for it) and keeps the newest
         KEEP[ns] steps."""
         from ..parallel import is_main_process
-        from ..zoo.checkpoint import save_state_dict
 
         fut, epoch, model_name = self._pending.pop(ns, (None, None, None))
         if fut is None:
@@ -136,11 +139,18 @@ class ShardedCheckpointer:
         fut.result()
         if is_main_process():
             if model_name:
-                save_state_dict(os.path.join(self.root, self.SIDECAR[ns]),
-                                model_name, read_model_state(
-                                    os.path.join(self.root, ns, str(epoch))))
+                self._write_sidecar(ns, epoch, model_name)
             for e in self._epochs(ns)[:-self.KEEP[ns]]:
                 shutil.rmtree(os.path.join(self.root, ns, str(e)))
+
+    def _write_sidecar(self, ns: str, epoch: int, model_name: str):
+        """The namespace's params sidecar, from the files of its landed
+        save at `epoch` (rank 0)."""
+        from ..zoo.checkpoint import save_state_dict
+
+        save_state_dict(os.path.join(self.root, self.SIDECAR[ns]),
+                        model_name, read_model_state(
+                            os.path.join(self.root, ns, str(epoch))))
 
     def save(self, state, epoch: int, loss: float, meta: Dict,
              is_best: bool, best_loss: float) -> None:

@@ -32,9 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.codec import resolve_device
-from ..parallel.mesh import mean_over_ranks
 from .losses import rate_distortion_loss
-from .state import TrainForward
+from .state import as_train_forward
 
 
 def distill_pruning_loss(student_out: Dict, teacher_out: Dict,
@@ -65,16 +64,13 @@ def distill_pruning_loss(student_out: Dict, teacher_out: Dict,
 
 
 def distill_parts(student, teacher, batch, sampler, lmbda, keep_ratio,
-                  ratio_weight=10.0, distill_weight=0.5, clf_weight=0.0,
-                  forward=None):
+                  ratio_weight=10.0, distill_weight=0.5, clf_weight=0.0):
     """(loss, parts, aux) of the student's training forward (noise, Gumbel
     and DropPath draws from `sampler`) against the frozen teacher's eval
-    forward, which runs without a graph; `forward` (default
-    `TrainForward(student)`) is the module called, e.g. the student
-    under DDP (`parallel.parallelize`)."""
-    if forward is None:
-        forward = TrainForward(student)
-    s_out, aux = forward(batch, sampler=sampler)
+    forward, which runs without a graph. `student` is the model or its
+    training forward (`as_train_forward`), e.g. the student under DDP
+    (`parallel.parallelize`)."""
+    s_out, aux = as_train_forward(student)(batch, sampler=sampler)
     with torch.no_grad():
         t_out = teacher(batch, training=False)
     loss, parts = distill_pruning_loss(s_out, t_out, batch, lmbda,
@@ -86,30 +82,29 @@ def distill_parts(student, teacher, batch, sampler, lmbda, keep_ratio,
 def make_dytrain_step(student, teacher, lmbda: float,
                       keep_ratio: Sequence[float], ratio_weight: float = 10.0,
                       distill_weight: float = 0.5,
-                      clf_weight: float = 0.0, forward=None) -> Callable:
+                      clf_weight: float = 0.0) -> Callable:
     """`step(state, batch)`: one distillation step of the student that
     `state` (a TrainState) trains: the loss of `distill_parts` plus the
     aux loss, one backward, one update. Returns the parts and `aux_loss`,
     detached (reading them syncs). The teacher is put in eval mode and
-    its parameters stop asking for gradients. With `forward` the
-    student's parallel wrapper (`parallel.parallelize`), each rank trains
-    on its rows, the teacher replicated beside it, and the parts are
-    averaged over the ranks: the global batch's."""
+    its parameters stop asking for gradients. With the student's
+    parallel wrapper (`parallel.parallelize`) each rank trains on its
+    rows, the teacher replicated beside it
+    (`parallel.make_parallel_train_step` averages the parts over the
+    ranks)."""
     teacher.eval().requires_grad_(False)
-    reduce = (lambda parts: parts) if forward is None else mean_over_ranks
-    if forward is None:
-        forward = TrainForward(student)
+    forward = as_train_forward(student)
 
     def step(state, batch):
         forward.train()
         state.zero_grad()
         loss, parts, aux = distill_parts(
-            student, teacher, batch, state.sampler, lmbda, keep_ratio,
-            ratio_weight, distill_weight, clf_weight, forward)
+            forward, teacher, batch, state.sampler, lmbda, keep_ratio,
+            ratio_weight, distill_weight, clf_weight)
         (loss + aux).backward()
         state.apply_gradients()
         parts["aux_loss"] = aux
-        return reduce({k: v.detach() for k, v in parts.items()})
+        return {k: v.detach() for k, v in parts.items()}
 
     return step
 
@@ -154,6 +149,8 @@ def main(argv=None):
         is_initialized,
         is_main_process,
         join_process_group,
+        make_parallel_train_step,
+        mean_over_ranks,
         parallelize,
         process_count,
         sync_global_devices,
@@ -175,7 +172,7 @@ def main(argv=None):
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
     student = create_model(args.model, seed=args.seed).to(device)
-    forward = parallelize(student, mesh) if mesh is not None else None
+    forward = parallelize(student, mesh) if mesh is not None else student
     # the teacher: the non-dynamic twin (the name without `dy`), from its
     # checkpoint, else seeded weights (useful only for smoke runs)
     teacher_name = args.model[2:]
@@ -206,8 +203,10 @@ def main(argv=None):
         best_loss = ckpt.get("best_loss", ckpt["loss"])
         log(f"resumed from {args.checkpoint} at epoch {last_epoch}")
     weights = (args.ratio_weight, args.distill_weight, args.clf_weight)
-    step = make_dytrain_step(student, teacher, args.lmbda, keep_ratio,
-                             *weights, forward=forward)
+    step = make_dytrain_step(forward, teacher, args.lmbda, keep_ratio,
+                             *weights)
+    if mesh is not None:
+        step = make_parallel_train_step(step)
     meta = {"model": args.model, "lmbda": args.lmbda, "metric": "mse"}
     local_batch = args.batch_size // process_count()
 
@@ -234,9 +233,8 @@ def main(argv=None):
         it = test_ds.batches(local_batch, 0, args.num_workers, shard=shard)
         with torch.no_grad():
             for batch in prefetch_to_device(it, device):
-                _, parts, _ = distill_parts(student, teacher, batch, sampler,
-                                            args.lmbda, keep_ratio, *weights,
-                                            forward=forward)
+                _, parts, _ = distill_parts(forward, teacher, batch, sampler,
+                                            args.lmbda, keep_ratio, *weights)
                 for k, v in parts.items():
                     totals[k] = totals.get(k, 0.0) + v.double()
                 count += 1

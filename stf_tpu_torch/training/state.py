@@ -18,7 +18,7 @@ by `lr_gamma` at each boundary (`MultiStepLR` stepped once a step, as
 optax's schedule reads its update count).
 """
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -174,16 +174,25 @@ class TrainForward(torch.nn.Module):
         return out, self.model.aux_loss()
 
 
-def make_train_step(model: Optional[torch.nn.Module], lmbda: float,
-                    metric: str = "mse",
-                    forward: Optional[torch.nn.Module] = None) -> Callable:
+def as_train_forward(module: torch.nn.Module) -> torch.nn.Module:
+    """`module` if it already is a training forward (a `TrainForward`, or
+    `parallel.parallelize`'s DDP or `fully_shard` wrapper of one), else
+    `TrainForward(module)`."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    inner = (module.module if isinstance(module, DistributedDataParallel)
+             else module)
+    return module if isinstance(inner, TrainForward) else TrainForward(module)
+
+
+def make_train_step(model: torch.nn.Module, lmbda: float,
+                    metric: str = "mse") -> Callable:
     """`train_step(state, batch)`: one training forward of the NHWC batch
     with noise from `state.sampler`, one backward of rd.loss + aux, one
     update. Returns the four metrics as device tensors (reading them
-    syncs). `forward` (default `TrainForward(model)`) is the module
-    called, e.g. `parallel.parallelize`'s wrapper."""
-    if forward is None:
-        forward = TrainForward(model)
+    syncs). `model` is the model or its training forward
+    (`as_train_forward`), e.g. `parallel.parallelize`'s wrapper."""
+    forward = as_train_forward(model)
 
     def train_step(state: TrainState, batch: torch.Tensor):
         forward.train()
@@ -197,13 +206,11 @@ def make_train_step(model: Optional[torch.nn.Module], lmbda: float,
     return train_step
 
 
-def make_eval_step(model: Optional[torch.nn.Module], lmbda: float,
-                   metric: str = "mse",
-                   forward: Optional[torch.nn.Module] = None) -> Callable:
+def make_eval_step(model: torch.nn.Module, lmbda: float,
+                   metric: str = "mse") -> Callable:
     """`eval_step(batch)`: the rounding forward in eval mode, no gradient;
-    the same four metrics. `forward` as in `make_train_step`."""
-    if forward is None:
-        forward = TrainForward(model)
+    the same four metrics. `model` as in `make_train_step`."""
+    forward = as_train_forward(model)
 
     def eval_step(batch: torch.Tensor):
         was_training = forward.training

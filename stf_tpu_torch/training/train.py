@@ -132,7 +132,7 @@ def main(argv=None):
         + f", processes: {n_proc}")
 
     model = create_model(args.model, seed=args.seed).to(device)
-    forward = parallelize(model, mesh) if mesh is not None else None
+    forward = parallelize(model, mesh) if mesh is not None else model
     patch = tuple(args.patch_size)
     train_ds = ImageFolder(args.dataset, "train", patch, seed=args.seed)
     test_ds = ImageFolder(args.dataset, "test", patch, seed=args.seed)
@@ -168,13 +168,12 @@ def main(argv=None):
         last_epoch = meta["epoch"] + 1
         best_loss = meta.get("best_loss", meta["loss"])
         log(f"resumed from {args.checkpoint} at epoch {last_epoch}")
-    train_step = (make_train_step(model, args.lmbda, args.metric)
-                  if forward is None else
-                  make_parallel_train_step(forward, args.lmbda, args.metric))
+    train_step = make_train_step(forward, args.lmbda, args.metric)
+    if mesh is not None:
+        train_step = make_parallel_train_step(train_step)
     # each rank scores its own rows (a sharded model gathers its
     # parameters in the wrapper's forward)
-    eval_step = make_eval_step(model, args.lmbda, args.metric,
-                               forward=forward)
+    eval_step = make_eval_step(forward, args.lmbda, args.metric)
     meta = {"model": args.model, "lmbda": args.lmbda, "metric": args.metric}
     local_batch = args.batch_size // n_proc
     # a partial final test batch is dropped, as in the JAX trainer

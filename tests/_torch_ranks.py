@@ -5,7 +5,7 @@ the work those ranks do. Imports no JAX: the ranks never run it.
 gloo process group (with a timeout) and to the parent by a local
 connection; `group.run(task, *args, timeout=...)` hands every rank the
 same call of one of this module's functions and returns their results
-in rank order. A rank that raises fails the call with its traceback; a
+in rank order (`run_while` computes the parent's reference meanwhile). A rank that raises fails the call with its traceback; a
 call that overruns its timeout kills the ranks and fails. A test module
 makes one group (a module-scoped fixture) and runs all its collective
 work there.
@@ -69,18 +69,33 @@ class RankGroup:
 
     def run(self, task, *args, timeout: float = 60.0, **kwargs):
         """[task(*args, **kwargs) on each rank], in rank order."""
+        return self.run_while(None, task, *args, timeout=timeout,
+                              **kwargs)[0]
+
+    def run_while(self, work, task, *args, timeout: float = 60.0,
+                  **kwargs):
+        """(`run`'s results, work()): `work` (None: nothing) runs here
+        while the ranks run the task; the ranks' results are read even
+        when `work` raises."""
         for conn in self.conns:
             conn.send((task.__name__, args, kwargs))
+        try:
+            mine = work() if work is not None else None
+        finally:
+            theirs = self._collect(task.__name__, timeout)
+        return theirs, mine
+
+    def _collect(self, name: str, timeout: float):
         results = []
         for rank, conn in enumerate(self.conns):
             if not conn.poll(timeout):
                 self.close()
                 raise AssertionError(f"rank {rank} overran {timeout} s in "
-                                     f"{task.__name__}:\n{self.output()}")
+                                     f"{name}:\n{self.output()}")
             ok, value = conn.recv()
             if not ok:
-                raise AssertionError(f"rank {rank} raised in "
-                                     f"{task.__name__}:\n{value}")
+                raise AssertionError(f"rank {rank} raised in {name}:\n"
+                                     f"{value}")
             results.append(value)
         return results
 
@@ -154,17 +169,35 @@ def port_model(name: str, seed: int = 0, **overrides):
     return he_scale(port, gen, name)
 
 
-def full_state(model):
-    """The model's full state_dict as NumPy (a sharded model's gathered:
-    collective)."""
-    from torch.distributed.checkpoint.state_dict import (
-        StateDictOptions,
-        get_model_state_dict,
-    )
+def local(t):
+    """A tensor as NumPy: a plain one whole, a sharded one (a `DTensor`
+    of a `fully_shard`ed model) as ("shard", this rank's dim-0 shard),
+    which `whole` joins with the other ranks'. No collective."""
+    if hasattr(t, "to_local"):
+        return ("shard", t.to_local().detach().numpy().copy())
+    return t.detach().numpy().copy()
 
-    sd = get_model_state_dict(model, options=StateDictOptions(
-        full_state_dict=True))
-    return {k: v.detach().numpy().copy() for k, v in sd.items()}
+
+def local_state(model):
+    """The model's state_dict, each entry `local`."""
+    return {k: local(v) for k, v in model.state_dict().items()}
+
+
+def whole(per_rank):
+    """One {name: array} from every rank's dict of `local` entries: the
+    shards joined on dim 0 in rank order, and a whole entry rank 0's,
+    after checking every rank holds the same."""
+    import numpy as np
+
+    out = {}
+    for k, v in per_rank[0].items():
+        if isinstance(v, tuple):
+            out[k] = np.concatenate([r[k][1] for r in per_rank])
+            continue
+        for r in per_rank[1:]:
+            np.testing.assert_array_equal(r[k], v, err_msg=k)
+        out[k] = v
+    return out
 
 
 def mesh_shape(batch_size, model=1):
@@ -179,12 +212,31 @@ def mesh_shape(batch_size, model=1):
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+def first_moments(state):
+    """{parameter name: Adam's first moment} of both optimizers, each
+    `local`. After the first update it is (1 - beta1) x the averaged,
+    clipped gradient: unlike the parameter, which that update moves by
+    about lr x sign(g), it carries the gradient's size."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        opt = (state.optimizer if p in state.optimizer.state
+               else state.aux_optimizer)
+        out[name] = local(opt.state[p]["exp_avg"])
+    return out
+
+
 def parallel_steps(name: str, x, lmbda: float, tp: int = 1, steps: int = 1,
-                   seed: int = 0, config=None):
+                   seed: int = 0, config=None, root=None, best=False):
     """`steps` parallel train steps of the small `name` model on this
-    rank's rows of the global NHWC batch `x` (NumPy): ([metrics of each
-    step], [the full parameters after each step], the number of sharded
-    parameters). `config` overrides the model's small config."""
+    rank's rows of the global NHWC batch `x` (NumPy), DDP or with --tp
+    `tp`: {"metrics": [of each step], "params": [`local_state` after each
+    step], "moments": `first_moments` after the first step, "sharded":
+    the number of sharded parameters}. `config` overrides the model's
+    small config. With `root`, then a collective save in `root` (as
+    best too with `best`), restored into a fresh model, mesh and
+    TrainState: "round_trip" = (the saved and restored states agree bit
+    for bit, the meta, {sidecar file: its state_dict} (rank 0), the
+    restored `local_state`)."""
     import torch
 
     from stf_tpu_torch.parallel import (
@@ -194,44 +246,7 @@ def parallel_steps(name: str, x, lmbda: float, tp: int = 1, steps: int = 1,
         parallelize,
         shard_batch,
     )
-    from stf_tpu_torch.training import TrainState
-
-    mesh = create_mesh(batch_size=len(x), model=tp, device_type="cpu")
-    model = port_model(name, seed, **(config or {}))
-    forward = parallelize(model, mesh)
-    state = TrainState(model, "cpu", seed=11,
-                       shard=data_parallel_shardings(mesh))
-    step = make_parallel_train_step(forward, lmbda)
-    batch = shard_batch(torch.from_numpy(x), mesh)
-    history, params = [], []
-    for _ in range(steps):
-        history.append({k: float(v) for k, v in step(state, batch).items()})
-        params.append(full_state(model))
-    sharded = sum(type(p).__name__ == "DTensor" for p in model.parameters())
-    return history, params, sharded
-
-
-def sharded_round_trip(name: str, x, lmbda: float, root: str, tp: int = 1,
-                       config=None):
-    """One parallel step of `name`, a sharded save in `root` (as best),
-    then a fresh model, mesh and TrainState restored from it: (the saved
-    and the restored states agree bit for bit, the meta, the sidecar's
-    state_dict as NumPy, the restored full parameters). `config`
-    overrides the model's small config."""
-    import torch
-
-    from stf_tpu_torch.parallel import (
-        create_mesh,
-        data_parallel_shardings,
-        make_parallel_train_step,
-        parallelize,
-        shard_batch,
-    )
-    from stf_tpu_torch.training import TrainState
-    from stf_tpu_torch.training.checkpoint import (
-        ShardedCheckpointer,
-        _train_state,
-    )
+    from stf_tpu_torch.training import TrainState, make_train_step
 
     def build(seed):
         mesh = create_mesh(batch_size=len(x), model=tp, device_type="cpu")
@@ -241,20 +256,48 @@ def sharded_round_trip(name: str, x, lmbda: float, root: str, tp: int = 1,
                            shard=data_parallel_shardings(mesh))
         return mesh, forward, state
 
-    mesh, forward, state = build(0)
-    make_parallel_train_step(forward, lmbda)(
-        state, shard_batch(torch.from_numpy(x), mesh))
+    mesh, forward, state = build(seed)
+    step = make_parallel_train_step(make_train_step(forward, lmbda))
+    batch = shard_batch(torch.from_numpy(x), mesh)
+    out = {"metrics": [], "params": []}
+    for _ in range(steps):
+        out["metrics"].append({k: float(v) for k, v
+                               in step(state, batch).items()})
+        out["params"].append(local_state(state.model))
+        out.setdefault("moments", first_moments(state))
+    out["sharded"] = sum(type(p).__name__ == "DTensor"
+                         for p in state.model.parameters())
+    if root is not None:
+        out["round_trip"] = _round_trip(state, name, lmbda, root, best,
+                                        build(seed + 1)[2])
+    return out
+
+
+def _round_trip(state, name, lmbda, root, best, fresh):
+    """`state` saved in `root` and restored into `fresh` (see
+    `parallel_steps`)."""
+    import torch
+
+    from stf_tpu_torch.parallel import is_main_process
+    from stf_tpu_torch.training.checkpoint import (
+        ShardedCheckpointer,
+        _train_state,
+    )
+
     ckpt = ShardedCheckpointer(root)
     meta = {"model": name, "lmbda": lmbda, "metric": "mse"}
-    ckpt.save(state, 3, 1.5, meta, True, 1.25)
+    ckpt.save(state, 3, 1.5, meta, best, 1.25)
     ckpt.close()
-    _, _, fresh = build(1)
     got = ShardedCheckpointer(root, read_only=True).restore(fresh)
     equal = _same(_train_state(state), _train_state(fresh))
-    equal = equal and fresh.step == state.step == 1
-    sidecar = torch.load(os.path.join(root, "params_best.pth.tar"))
-    return (equal, got, {k: v.numpy() for k, v in sidecar.items()},
-            full_state(fresh.model))
+    equal = equal and fresh.step == state.step
+    sidecars = {}
+    if is_main_process():
+        for f in sorted(os.listdir(root)):
+            if f.endswith(".pth.tar"):
+                sidecars[f] = {k: v.numpy() for k, v in
+                               torch.load(os.path.join(root, f)).items()}
+    return equal, got, sidecars, local_state(fresh.model)
 
 
 def _same(a, b) -> bool:
@@ -318,12 +361,14 @@ class _Small:
 def dytrain_steps(x, lmbda: float, keep, steps: int = 1):
     """`steps` data-parallel distillation steps (clf_weight 1) of the small
     DYSTF against its STF teacher (`distill_pair`) on this rank's rows of
-    `x`: ([parts of each step], full student parameters)."""
+    `x`: ([parts of each step], the student's `local_state`, its
+    `first_moments` after the first step)."""
     import torch
 
     from stf_tpu_torch.parallel import (
         create_mesh,
         data_parallel_shardings,
+        make_parallel_train_step,
         parallelize,
         shard_batch,
     )
@@ -334,12 +379,14 @@ def dytrain_steps(x, lmbda: float, keep, steps: int = 1):
     forward = parallelize(student, mesh)
     state = TrainState(student, "cpu", seed=11,
                        shard=data_parallel_shardings(mesh))
-    step = make_dytrain_step(student, teacher, lmbda, keep, clf_weight=1.0,
-                             forward=forward)
+    step = make_parallel_train_step(make_dytrain_step(
+        forward, teacher, lmbda, keep, clf_weight=1.0))
     batch = shard_batch(torch.from_numpy(x), mesh)
-    history = [{k: float(v) for k, v in step(state, batch).items()}
-               for _ in range(steps)]
-    return history, full_state(student)
+    history, moments = [], None
+    for _ in range(steps):
+        history.append({k: float(v) for k, v in step(state, batch).items()})
+        moments = moments or first_moments(state)
+    return history, local_state(student), moments
 
 
 def distill_pair():

@@ -6,15 +6,24 @@ One module-scoped group of two ranks (`_torch_ranks.RankGroup`, no JAX in
 the ranks) does all of this file's collective work; every call has a
 timeout, after which the ranks are killed and the test fails. The ranks
 build the same small models as `_torch_port.port_small` (init_weights at
-a seed, He scale) and take their rows of a global batch of 2 at 64x64.
+a seed, He scale; the cnn at `TINY`, `tests/test_parallel.py`'s config)
+and take their rows of a global batch of 2 at 64x64.
 
-Tolerances, JAX's own for its data-parallel step
-(`tests/test_parallel.py:53-56`): metrics rel 1e-5 (the batch's sums are
-taken in two halves and reduced); parameters after one or two updates
-within atol 5e-4.
+Tolerances: metrics rel 1e-5, and parameters after one or two updates
+within atol 5e-4, JAX's own for its data-parallel step
+(`tests/test_parallel.py:53-56`). Both bounds are loose on what the
+parallel step adds: the metrics of the first step come before any
+update, and Adam's first step moves a parameter by about lr x sign(g)
+(lr 1e-4) whatever the gradient's size. So each step is also held to
+Adam's first moment after the first update, (1 - beta1) x the gradient
+averaged over the ranks and clipped to the global norm 1 (the clip is
+active at these weights, checked): within MOMENT_RTOL (1e-3) of each
+tensor's largest entry. Rounding the batch's sums in two halves moves it
+by up to about 7e-5 of that (1e-7 between DDP and --tp 2); a lost or
+doubled all-reduce, or a norm that missed a shard, moves it by tens of
+percent.
 """
 
-import copy
 import os
 
 import jax
@@ -33,13 +42,23 @@ from stf_tpu_torch.training import (
     make_dytrain_step,
     make_train_step,
 )
+from stf_tpu_torch.training.state import is_aux_parameter
 
 LMBDA = 0.013
 KEEP = (0.75, 0.5, 0.25)
 METRIC_RTOL = 1e-5
 PARAM_ATOL = 5e-4
+MOMENT_RTOL = 1e-3
+BETA1 = 0.9  # torch's and optax's Adam
 SEED = 11  # the trainer's sampler, in the ranks and here
 TINY = dict(N=16, M=24, num_slices=2, max_support_slices=1)
+# each model's config over its small one, and the steps it takes: the
+# second update of the cnn runs on the Adam moments of the first (sharded
+# with --tp 2), and DDP checks there that every parameter took a gradient
+# in the first; the stf adds its attention, norms and DropPath masks to
+# one step
+CONFIG = {"cnn": TINY, "stf": {}}
+STEPS = {"cnn": 2, "stf": 1}
 
 
 @pytest.fixture(scope="module")
@@ -56,13 +75,21 @@ def x():
 
 def _single_steps(model, x, steps):
     """The port's single-process steps on the whole batch: ([metrics],
-    state_dict, the recorded draws of the first step)."""
+    [state_dict after each step], the first moments after the first
+    step, the recorded draws (uniform, bernoulli) of the first step)."""
     state = TrainState(model, "cpu", seed=SEED)
     state.sampler = rec = RecordingSampler(state.sampler)
     step = make_train_step(model, LMBDA)
-    history = [{k: float(v) for k, v in step(state, torch.from_numpy(x))
-                .items()} for _ in range(steps)]
-    return history, {k: v.numpy() for k, v in model.state_dict().items()}, rec
+    history, params = [], []
+    for i in range(steps):
+        history.append({k: float(v) for k, v
+                        in step(state, torch.from_numpy(x)).items()})
+        params.append({k: v.numpy().copy()
+                       for k, v in model.state_dict().items()})
+        if i == 0:
+            moments = tr.first_moments(state)
+            draws = (list(rec.uniform_draws), list(rec.bernoulli_draws))
+    return history, params, moments, draws
 
 
 def _assert_metrics(got, want):
@@ -79,27 +106,86 @@ def _assert_params(got, want):
     assert worst <= PARAM_ATOL, worst
 
 
-# steps a model takes: the second update of the cnn runs on the Adam
-# moments of the first (sharded with --tp 2), and DDP checks there that
-# every parameter took a gradient in the first; the stf adds its
-# attention, norms and DropPath masks to one step
-STEPS = {"cnn": 2, "stf": 1}
+def _assert_moments(got, want):
+    """Each first moment within MOMENT_RTOL of its tensor's largest
+    entry."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    for k in want:
+        scale = float(np.abs(want[k]).max())
+        gap = float(np.abs(got[k] - want[k]).max())
+        assert gap <= MOMENT_RTOL * scale, (k, gap, scale)
+
+
+def _clipped_norm(moments):
+    """The global norm of the main group's gradient as the first update
+    took it (after the clip)."""
+    return float(np.sqrt(sum(np.sum((m / (1 - BETA1)).astype(np.float64)
+                                    ** 2) for k, m in moments.items()
+                             if not is_aux_parameter(k))))
+
+
+def _parallel(ranks, x, tp, tmp, meanwhile=None):
+    """({name: the 2-rank steps of `tr.parallel_steps`, with --tp `tp`,
+    every rank's entries joined (`tr.whole`)}, {name: meanwhile[name]()
+    computed here while the ranks take that name's steps}); the cnn's
+    state then saved in `tmp`/ck<tp> (as best too with --tp 2) and
+    restored ("round_trip")."""
+    out, mine = {}, {}
+    for name in ("cnn", "stf"):
+        root = str(tmp / f"ck{tp}") if name == "cnn" else None
+        per_rank, mine[name] = ranks.run_while(
+            (meanwhile or {}).get(name), tr.parallel_steps, name, x, LMBDA,
+            tp, STEPS[name], config=CONFIG[name], root=root, best=tp > 1,
+            timeout=120)
+        run = dict(per_rank[0])
+        run["params"] = [tr.whole([r["params"][i] for r in per_rank])
+                         for i in range(STEPS[name])]
+        run["moments"] = tr.whole([r["moments"] for r in per_rank])
+        assert [r["metrics"] for r in per_rank[1:]] == [run["metrics"]]
+        if root is not None:
+            run["round_trip"] = [r["round_trip"] for r in per_rank]
+            run["root"] = root
+        out[name] = run
+    return out, mine
 
 
 @pytest.fixture(scope="module")
-def single(x):
-    """{name: the single-process port steps} for cnn and stf."""
-    return {name: _single_steps(tr.port_model(name), x, STEPS[name])
-            for name in ("cnn", "stf")}
+def ddp_single(ranks, x, tmp_path_factory):
+    """(the 2-rank DDP steps (`_parallel`), {name: the single-process
+    port steps})."""
+    def single(name):
+        return lambda: _single_steps(tr.port_model(name, **CONFIG[name]), x,
+                                     STEPS[name])
+
+    return _parallel(ranks, x, 1, tmp_path_factory.mktemp("ddp"),
+                     {name: single(name) for name in CONFIG})
 
 
 @pytest.fixture(scope="module")
-def ddp(ranks, x):
-    """{name: rank 0's ([metrics], [parameters after each step], sharded
-    count)} of the 2-rank DDP steps."""
-    return {name: ranks.run(tr.parallel_steps, name, x, LMBDA, 1,
-                            STEPS[name], timeout=120)[0]
-            for name in ("cnn", "stf")}
+def single(ddp_single):
+    return ddp_single[1]
+
+
+@pytest.fixture(scope="module")
+def ddp(ddp_single):
+    return ddp_single[0]
+
+
+@pytest.fixture(scope="module")
+def tp2_jax(ranks, x, single, tmp_path_factory):
+    """(the 2-rank --tp 2 steps (`_parallel`): every parameter and both
+    Adams' moments sharded over the 2-rank `model` dim (fully_shard);
+    JAX's data-parallel step of the tiny cnn (`_jax_data_parallel`),
+    computed while the ranks take the cnn's)."""
+    out, mine = _parallel(ranks, x, 2, tmp_path_factory.mktemp("tp"),
+                          {"cnn": lambda: _jax_data_parallel(
+                              x, *single["cnn"][3])})
+    return out, mine["cnn"]
+
+
+@pytest.fixture(scope="module")
+def tp2(tp2_jax):
+    return tp2_jax[0]
 
 
 def test_create_mesh_shapes_and_errors(ranks):
@@ -168,35 +254,55 @@ def test_sampler_shards_draw_rows_of_the_global_draw():
 
 @pytest.mark.parametrize("name", ["cnn", "stf"])
 def test_ddp_step_matches_single_process(single, ddp, name):
-    metrics, params, sharded = ddp[name]
-    want_metrics, want_params, _ = single[name]
-    assert sharded == 0
-    _assert_metrics(metrics, want_metrics)
-    _assert_params(params[-1], want_params)
+    run = ddp[name]
+    want_metrics, want_params, want_moments, _ = single[name]
+    assert run["sharded"] == 0
+    _assert_metrics(run["metrics"], want_metrics)
+    _assert_moments(run["moments"], want_moments)
+    _assert_params(run["params"][-1], want_params[-1])
+    # the clip was active: the moments carry the clipped norm (1)
+    np.testing.assert_allclose(_clipped_norm(want_moments), 1.0, rtol=1e-5)
     # the steps moved the parameters: two untouched models would agree
-    before = tr.port_model(name).state_dict()
-    assert any(not np.array_equal(params[-1][k], before[k].numpy())
+    before = tr.port_model(name, **CONFIG[name]).state_dict()
+    assert any(not np.array_equal(run["params"][-1][k], before[k].numpy())
                for k in before)
 
 
 @pytest.mark.parametrize("name", ["cnn", "stf"])
-def test_tp_step_matches_ddp(ranks, ddp, x, name):
-    """--tp 2: every parameter and both Adams' moments sharded over the
-    2-rank `model` dim (fully_shard); the step is the DDP step."""
-    metrics, params, sharded = ranks.run(tr.parallel_steps, name, x, LMBDA,
-                                         2, STEPS[name], timeout=120)[0]
-    assert sharded == len(list(tr.port_model(name).parameters()))
-    _assert_metrics(metrics, ddp[name][0])
-    _assert_params(params[-1], ddp[name][1][-1])
+def test_tp_step_matches_ddp(ddp, tp2, name):
+    """--tp 2: every parameter and both Adams' moments sharded, the
+    gradient clipped through its shards; the step is the DDP step."""
+    run = tp2[name]
+    assert run["sharded"] == len(list(tr.port_model(name, **CONFIG[name])
+                                      .parameters()))
+    _assert_metrics(run["metrics"], ddp[name]["metrics"])
+    _assert_moments(run["moments"], ddp[name]["moments"])
+    _assert_params(run["params"][-1], ddp[name]["params"][-1])
 
 
-def test_two_rank_cnn_step_matches_jax_data_parallel(ranks, x):
-    """The 2-rank DDP step of a tiny cnn (`TINY`, `tests/test_parallel.py`'s
-    config, smaller than SMALL for JAX to trace and compile) against
-    JAX's data-parallel step on the 8-device CPU mesh (its data axis
-    shrunk to the batch of 2), at the same weights, the JAX step fed the
-    port's draws (`_torch_replay`) of the single-process step, which
-    the ranks' rows are (test_sampler_shards_draw_rows_of_the_global_draw)."""
+def _jax_first_moments(opt_state):
+    """Adam's first moment of every parameter of JAX's optimizer state
+    (the main and aux Adams each hold the other's parameters as masked
+    nodes), as a params tree."""
+    def kind(s):
+        return type(s).__name__
+
+    adams = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda s: kind(s) == "ScaleByAdamState")
+        if kind(s) == "ScaleByAdamState"]
+    assert len(adams) == 2, [kind(s) for s in adams]
+    masked = lambda m: kind(m) == "MaskedNode"  # noqa: E731
+    return jax.tree_util.tree_map(
+        lambda a, b: np.asarray(b if masked(a) else a),
+        adams[0].mu, adams[1].mu, is_leaf=masked)
+
+
+def _jax_data_parallel(x, uniforms, bernoullis):
+    """JAX's data-parallel step of the tiny cnn (`port_model("cnn",
+    **TINY)`'s weights) on the 8-device CPU mesh, its data axis shrunk to
+    the batch of 2, fed the recorded draws (`_torch_replay`): (its
+    metrics, the parameters after the update and Adam's first moments,
+    as the port's state_dicts)."""
     from stf_tpu.models import WACNN as JaxWACNN
     from stf_tpu.parallel import (
         create_mesh,
@@ -208,58 +314,81 @@ def test_two_rank_cnn_step_matches_jax_data_parallel(ranks, x):
     from stf_tpu.training.state import configure_optimizers
     from stf_tpu_torch.zoo import state_dict_from_jax
 
-    port = tr.port_model("cnn", **TINY)
-    _, _, rec = _single_steps(copy.deepcopy(port), x, 1)
-    metrics, params, _ = ranks.run(tr.parallel_steps, "cnn", x, LMBDA, 1, 1,
-                                   config=TINY, timeout=120)[0]
-    model, jparams = to_jax("cnn", port, model=JaxWACNN(**TINY))
+    model, jparams = to_jax("cnn", tr.port_model("cnn", **TINY),
+                            model=JaxWACNN(**TINY))
     state = JaxTrainState.create(apply_fn=model.apply, params=jparams,
                                  tx=configure_optimizers(1e-4, 1e-3, 1.0))
     mesh = create_mesh(batch_size=2)
     assert mesh.devices.size == 2
     step = make_parallel_train_step(jax_train_step(model, LMBDA), mesh)
     with pytest.MonkeyPatch.context() as mp:
-        queues = replay_draws(mp, rec.uniform_draws, rec.bernoulli_draws)
+        queues = replay_draws(mp, uniforms, bernoullis)
         state, m = step(state, shard_batch(x, mesh), jax.random.key(0))
     assert not any(queues), "the JAX step drew fewer values than the port"
+
+    def as_port(tree):
+        return {k: v.numpy() for k, v in state_dict_from_jax(
+            jax.tree_util.tree_map(np.asarray, tree), "cnn").items()}
+
+    return ({k: float(v) for k, v in m.items()}, as_port(state.params),
+            as_port(_jax_first_moments(state.opt_state)))
+
+
+def test_two_rank_cnn_step_matches_jax_data_parallel(ddp, tp2_jax):
+    """The 2-rank DDP step of the tiny cnn against JAX's data-parallel
+    step (`_jax_data_parallel`) at the same weights, the JAX step fed the
+    port's draws of the single-process step, which the ranks' rows are
+    (test_sampler_shards_draw_rows_of_the_global_draw): the metrics, the
+    first moments and the parameters after the update."""
+    run = ddp["cnn"]
+    want_metrics, want_params, want_moments = tp2_jax[1]
     for k in ("loss", "bpp_loss", "distortion", "aux_loss"):
-        np.testing.assert_allclose(metrics[0][k], float(m[k]),
+        np.testing.assert_allclose(run["metrics"][0][k], want_metrics[k],
                                    rtol=METRIC_RTOL, err_msg=k)
-    want = {k: v.numpy() for k, v in state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, state.params), "cnn").items()}
-    _assert_params({k: params[0][k] for k in want}, want)
+    _assert_params({k: run["params"][0][k] for k in want_params},
+                   want_params)
+    _assert_moments({k: run["moments"][k] for k in want_moments},
+                    want_moments)
 
 
 @pytest.mark.parametrize("tp", [1, 2])
-def test_sharded_checkpoint_restores_bit_equal(ranks, x, tmp_path, tp):
-    """A collective save after one step (DDP, or every tensor sharded with
-    --tp 2), restored into a fresh model, mesh and TrainState: model, both
-    optimizers, schedule, generator and step bit-equal; the meta; the
-    params sidecar equal to the restored parameters and read by the zoo."""
+def test_sharded_checkpoint_restores_bit_equal(request, tp):
+    """The collective save after the cnn's steps (DDP, or every tensor
+    sharded with --tp 2, saved as best too), restored into a fresh model,
+    mesh and TrainState: model, both optimizers, schedule, generator and
+    step bit-equal; the meta; the params sidecars equal to the restored
+    parameters and read by the zoo."""
     from stf_tpu_torch.zoo import load_checkpoint
 
-    root = str(tmp_path / "ck")
-    out = ranks.run(tr.sharded_round_trip, "cnn", x, LMBDA, root, tp,
-                    config=TINY, timeout=120)
+    run = request.getfixturevalue({1: "ddp", 2: "tp2"}[tp])["cnn"]
+    root, out = run["root"], run["round_trip"]
     for equal, meta, _, _ in out:
         assert equal
         assert meta == {"model": "cnn", "lmbda": LMBDA, "metric": "mse",
                         "epoch": 3, "loss": 1.5, "best_loss": 1.25}
-    _, _, sidecar, restored = out[0]
-    assert set(sidecar) == set(restored)
+    restored = tr.whole([r[3] for r in out])
+    # restored, not merely reloaded: the state after the steps
     for k in restored:
-        np.testing.assert_array_equal(sidecar[k], restored[k], err_msg=k)
-    assert sorted(os.listdir(root)) == [
-        "best", "latest", "params.pth.tar", "params.pth.tar.json",
-        "params_best.pth.tar", "params_best.pth.tar.json"]
-    # the sidecar is the zoo's format: its json names the model, the
-    # small config is passed as the model's kwargs
-    small = load_checkpoint(os.path.join(root, "params_best.pth.tar"),
-                            device="cpu", **TINY)
-    got = small.state_dict()
-    for k in restored:
-        np.testing.assert_array_equal(got[k].numpy(), restored[k],
+        np.testing.assert_array_equal(restored[k], run["params"][-1][k],
                                       err_msg=k)
+    sidecars = ["params.pth.tar"] + (["params_best.pth.tar"] if tp > 1
+                                     else [])
+    assert sorted(os.listdir(root)) == sorted(
+        (["best"] if tp > 1 else []) + ["latest"]
+        + [f for s in sidecars for f in (s, s + ".json")])
+    for s in sidecars:
+        sidecar = out[0][2][s]
+        assert set(sidecar) == set(restored)
+        for k in restored:
+            np.testing.assert_array_equal(sidecar[k], restored[k],
+                                          err_msg=k)
+        # the zoo's format: its json names the model, the small config
+        # is passed as the model's kwargs
+        got = load_checkpoint(os.path.join(root, s), device="cpu",
+                              **TINY).state_dict()
+        for k in restored:
+            np.testing.assert_array_equal(got[k].numpy(), restored[k],
+                                          err_msg=k)
 
 
 def test_trainer_cli_sharded_format_and_resume(ranks, tmp_path):
@@ -293,17 +422,26 @@ def test_trainer_cli_sharded_format_and_resume(ranks, tmp_path):
 def test_dytrain_step_two_ranks_match_one(ranks, x):
     """The distillation step with the student under DDP and the teacher
     replicated (two steps: DDP checks in the second that every student
-    parameter took a gradient in the first): parts and parameters after
-    them against the
-    single-process step (clf_weight 1, Gumbel, noise and DropPath draws
-    the rows of the global draws)."""
-    parts, params = ranks.run(tr.dytrain_steps, x, LMBDA, KEEP, 2,
-                              timeout=120)[0]
-    student, teacher = tr.distill_pair()
-    state = TrainState(student, "cpu", seed=SEED)
-    step = make_dytrain_step(student, teacher, LMBDA, KEEP, clf_weight=1.0)
-    want = [{k: float(v) for k, v in step(state, torch.from_numpy(x))
-             .items()} for _ in range(2)]
+    parameter took a gradient in the first) against the single-process
+    step (clf_weight 1; Gumbel, noise and DropPath draws the rows of the
+    global draws): the parts of both steps, the first moments after the
+    first, the parameters after both."""
+    def single_steps():
+        student, teacher = tr.distill_pair()
+        state = TrainState(student, "cpu", seed=SEED)
+        step = make_dytrain_step(student, teacher, LMBDA, KEEP,
+                                 clf_weight=1.0)
+        parts, moments = [], None
+        for _ in range(2):
+            parts.append({k: float(v) for k, v
+                          in step(state, torch.from_numpy(x)).items()})
+            moments = moments or tr.first_moments(state)
+        return parts, moments, {k: v.numpy()
+                                for k, v in student.state_dict().items()}
+
+    per_rank, (want, want_moments, want_params) = ranks.run_while(
+        single_steps, tr.dytrain_steps, x, LMBDA, KEEP, 2, timeout=120)
+    parts, _, moments = per_rank[0]
     _assert_metrics(parts, want)
-    _assert_params(params, {k: v.numpy()
-                            for k, v in student.state_dict().items()})
+    _assert_moments(moments, want_moments)
+    _assert_params(tr.whole([r[1] for r in per_rank]), want_params)
