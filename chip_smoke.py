@@ -170,6 +170,7 @@ ALU_CYCLES each) at the card's maximum SM clock, B3's plus its escape
 pass's chunk scans.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -262,6 +263,13 @@ DYTRAIN_B1 = 24 + 24
 GD_STEPS, GD_LMBDA, GD_SPARSE = 5, 0.013, 1e-4
 GD_ROUNDS, GD_SUBSET, GD_TICK_NUM = 2, 2, 1000
 WARM_CALLS = 3  # warm calls a median of the batch-24 phase takes
+# TBC's warm medians at batch 2 over PR 13's smokes (ms), before B1's
+# head-group design, printed beside this build's
+TBC_PR13_MS = {"lane compress (B3, per-slice walk)": "42.58-42.64",
+               "full-tier compress": "40.37-42.70",
+               "split-tier compress": "41.09-42.84",
+               "fused decompress": "39.43-40.80",
+               "per-slice decompress": "45.13-47.83"}
 # the lift of the scale stacks' last bias (`smoke_model`) by family
 SCALE_LIFT = {"stf": 1.0, "dystf": 1.0}
 
@@ -389,6 +397,17 @@ def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# special-function (MUFU) results an SM delivers a clock on Hopper, ex2
+# among them: 4 a sub-partition
+MUFU_PER_SM_CLOCK = 16
+
+
+def softmax_floor(units, n, sm_mhz, sms):
+    """ms the card's MUFU units need for a softmax's N^2 exps a (window,
+    head), over `units` (window, head) pairs, at the SM clock `sm_mhz`."""
+    return units * n * n / (sms * MUFU_PER_SM_CLOCK * sm_mhz * 1e6) * 1e3
+
+
 def bf16_ulp_errors(got, want):
     """|got - want| in bf16 ulps of want, the ulp taken at no less than
     2^-12 of want's largest magnitude (bf16's ulp over [2^e, 2^(e+1)) is
@@ -402,14 +421,55 @@ def bf16_ulp_errors(got, want):
     return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def phase_attention_bf16(dev):
-    """B1's bf16 instances at the bench path's shapes: each against the
-    bf16 plain version (at most one bf16 ulp an element, `bf16_ulp_errors`;
-    two launches bit-equal), for the codec's design (bf16 mma.sync) and
-    the other (TF32 on the converted values); device times of both over
-    graph replays, the plain version's and SDPA's with the same mask on the
-    same bf16 inputs; the bound at 2 bytes an element of qkv, bias and
-    out, 4 a label, and B1's products at the bf16 tensor rate."""
+def b1_designs(ws, hd, nh, dtype):
+    """B1's designs at a geometry, the wrapper's own (`main_design`)
+    first: at TBC's 8x8 geometries the head group's and the window-head
+    design it replaced (PR 13's), in bf16 also the TF32 products."""
+    import torch
+
+    from stf_tpu_torch import _native
+    from stf_tpu_torch.layers import attention_core as ac
+
+    group = _native.load("winattn").stf_window_attention_head_group_heads()
+    main = ac.main_design(ws, hd, nh, dtype, group)
+    others = (["bf16_mma", "tf32"] if dtype == torch.bfloat16
+              else ["window_head"])
+    if ac.head_group_fits(ws, hd, nh, group):
+        others.insert(0, ac.HEAD_GROUP)
+    return [main] + [d for d in others if d != main]
+
+
+def time_designs(launch, designs, iters):
+    """{design: device ms} of `launch(design)` over graph replays, each
+    design timed twice, in order and then in reverse (for two designs:
+    old, new, new, old), the mean of the two."""
+    first = {d: graph_ms(lambda: launch(d), iters) for d in designs}
+    second = {d: graph_ms(lambda: launch(d), iters) for d in designs[::-1]}
+    return {d: (first[d] + second[d]) / 2 for d in designs}
+
+
+def head_group_ptxas(hd, bf16):
+    """ptxas's registers and spills of the head-group instance at head
+    width `hd` (from the build's -Xptxas -v output), or ''."""
+    from stf_tpu_torch import _native
+
+    tag = f"head_group_kernelI{'13__nv_bfloat16' if bf16 else 'f'}Li{hd}E"
+    for line in ptxas_summary(_native.build_logs.get("winattn", "")):
+        if tag in line:
+            return line.split(": ", 1)[1]
+    return ""
+
+
+def phase_attention_bf16(dev, sm_mhz):
+    """B1's bf16 instances at the bench path's shapes and TBC's: each
+    design (`b1_designs`: the wrapper's first; bf16 mma.sync, TF32 on the
+    converted values, and at TBC's 8x8 geometries the head group's)
+    against the bf16 plain version (at most one bf16 ulp an element,
+    `bf16_ulp_errors`; two launches bit-equal); device times of each over
+    graph replays in turns, the plain version's and SDPA's with the same
+    mask on the same bf16 inputs; the bound at 2 bytes an element of qkv,
+    bias and out, 4 a label, and B1's products at the bf16 tensor rate,
+    and the softmax floor."""
     import torch
     import torch.nn.functional as F
 
@@ -417,8 +477,8 @@ def phase_attention_bf16(dev):
     from stf_tpu_torch.layers import shifted_window_region_labels
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    chosen, other = "bf16_mma", "tf32"
     for model, (h, w), C, ws, nh, batch in ATTN_BF16_GEOMS:
         N, hd = ws * ws, C // nh
         scale = hd ** -0.5
@@ -430,8 +490,10 @@ def phase_attention_bf16(dev):
         ).to(dev)
         plain = ac.window_attention_plain(qkv, bias, labels, ws, scale)
         name = ac.launch_key(ws, hd, torch.bfloat16)
-        errs, ms = {}, {}
-        for design in (chosen, other):
+        designs = b1_designs(ws, hd, nh, torch.bfloat16)
+        chosen = designs[0]
+        errs = {}
+        for design in designs:
             out = ac._launch(qkv, bias, labels, ws, scale, design)
             again = ac._launch(qkv, bias, labels, ws, scale, design)
             torch.cuda.synchronize()
@@ -445,8 +507,8 @@ def phase_attention_bf16(dev):
                 raise AssertionError(f"B1 {name} {design} {model} {h}x{w}: "
                                      f"{errs[design][0]:.3g} bf16 ulps from "
                                      "the plain version")
-            ms[design] = graph_ms(
-                lambda d=design: ac._launch(qkv, bias, labels, ws, scale, d), 20)
+        ms = time_designs(
+            lambda d: ac._launch(qkv, bias, labels, ws, scale, d), designs, 20)
         if not torch.equal(ac.window_attention(qkv, bias, labels, ws, scale),
                            ac._launch(qkv, bias, labels, ws, scale, chosen)):
             raise AssertionError(f"B1 {name}: the wrapper did not launch the "
@@ -469,16 +531,21 @@ def phase_attention_bf16(dev):
         nbytes = (qkv.numel() + plain.numel() + bias.numel()) * 2 + labels.numel() * 4
         ops = 4 * N * N * hd * batch * nW * nh
         bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        floor_ms = softmax_floor(batch * nW * nh, N, sm_mhz, sms)
+        regs = head_group_ptxas(hd, True) if chosen == ac.HEAD_GROUP else ""
         print(f"B1 {name} ({model}, batch {batch}): qkv {tuple(qkv.shape)} "
               + "; ".join(f"{d}: {e[0]:.3g} ulps at most, {e[1]} of "
                           f"{plain.numel()} elements differ, max abs {e[2]:.3g}, "
-                          f"{ms[d]:.4f} ms" for d, e in errs.items())
+                          f"{ms[d]:.4f} ms ({100 * bound_ms / ms[d]:.1f}% of "
+                          "bound)" for d, e in errs.items())
               + f"; deterministic; eager per call {eager_ms:.4f} ms; plain "
               f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
-              f"(max abs {lib_err:.3g}) bound {bound_ms:.4f} ms ({bound_by}); "
-              f"{chosen} at {100 * bound_ms / ms[chosen]:.1f}% of bound, "
-              f"{lib_ms / ms[chosen]:.2f}x sdpa, {ms[other] / ms[chosen]:.2f}x "
-              f"{other}")
+              f"(max abs {lib_err:.3g}) bound {bound_ms:.4f} ms ({bound_by}), "
+              f"softmax floor {floor_ms:.4f} ms; {chosen} at "
+              f"{100 * bound_ms / ms[chosen]:.1f}% of bound, "
+              f"{lib_ms / ms[chosen]:.2f}x sdpa, "
+              + ", ".join(f"{ms[d] / ms[chosen]:.2f}x {d}" for d in designs[1:])
+              + (f"; {chosen} ptxas: {regs}" if regs else ""))
         if all(r["name"] != name for r in rows):
             rows.append(dict(
                 name=name, route="cuda",
@@ -486,16 +553,18 @@ def phase_attention_bf16(dev):
                 replaces="stf_tpu/layers/pallas_attention.py:49",
                 launches=None, max_abs_err=errs[chosen][2], ms=ms[chosen],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, eager_ms=eager_ms, design=chosen,
-                other_design=other, other_design_ms=ms[other],
+                library_ms=lib_ms, eager_ms=eager_ms, softmax_floor_ms=floor_ms,
+                design=chosen, other_design_ms={d: ms[d] for d in designs[1:]},
                 path=f"{model}_bf16",
             ))
     return rows
 
 
-def phase_attention(dev):
+def phase_attention(dev, sm_mhz):
     """B1 vs its plain version and SDPA at every model's attention
-    geometries."""
+    geometries; at TBC's 8x8 geometries its head-group design (the
+    wrapper's) and its window-head design, both checked and timed in
+    turns."""
     import torch
     import torch.nn.functional as F
 
@@ -550,7 +619,18 @@ def phase_attention(dev):
               f"{step_ms[1]:.4f} ms; the backward's device time "
               f"{bwd_ms:.4f} ms (graph replays)")
         kernel = lambda: ac.window_attention(qkv, bias, labels, ws, scale)  # noqa: E731
-        ms = graph_ms(kernel, 20)
+        designs = b1_designs(ws, hd, nh, torch.float32)
+        for design in designs[1:]:  # the other designs: right, deterministic
+            o1 = ac._launch(qkv, bias, labels, ws, scale, design)
+            o2 = ac._launch(qkv, bias, labels, ws, scale, design)
+            torch.cuda.synchronize()
+            e = (o1 - plain).abs().max().item()
+            if not (e <= ATTN_TOL and torch.equal(o1, o2)):
+                raise AssertionError(f"B1 {name} {design} {model} {h}x{w}: "
+                                     f"max abs err {e}, or two launches differ")
+        times = time_designs(
+            lambda d: ac._launch(qkv, bias, labels, ws, scale, d), designs, 20)
+        ms = times[designs[0]]
         eager_ms = cuda_ms(kernel, 50)
         # the same launch without the autograd Function around it: the
         # host cost of entering the Function on the no-gradient path
@@ -561,14 +641,23 @@ def phase_attention(dev):
         )
         lib_ms = graph_ms(sdpa, 20)
         nbytes = (qkv.numel() + out.numel() + bias.numel() + labels.numel()) * 4
-        ops = 4 * N * N * hd * BATCH * nW * nh
+        windows = BATCH * nW
+        ops = 4 * N * N * hd * windows * nh
         bound_ms, bound_by = bound(nbytes, ops)
+        floor_ms = softmax_floor(windows * nh, N, sm_mhz,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+        other = "".join(
+            f"; {d} {times[d]:.4f} ms ({times[d] / ms:.2f}x, "
+            f"{100 * bound_ms / times[d]:.1f}% of bound)" for d in designs[1:])
+        regs = head_group_ptxas(hd, False) if designs[0] == ac.HEAD_GROUP else ""
         print(f"B1 {name} ({model}): qkv {tuple(qkv.shape)} max_abs_err "
-              f"{err:.3g} deterministic (sdpa {lib_err:.3g}) kernel {ms:.4f} ms "
-              f"(eager per call {eager_ms:.4f} ms; without the autograd "
-              f"Function {direct_ms:.4f} ms) plain {plain_ms:.4f} ms "
-              f"sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); "
-              f"{100 * bound_ms / ms:.1f}% of bound, {lib_ms / ms:.2f}x sdpa")
+              f"{err:.3g} deterministic (sdpa {lib_err:.3g}) {designs[0]} "
+              f"{ms:.4f} ms{other} (eager per call {eager_ms:.4f} ms; without "
+              f"the autograd Function {direct_ms:.4f} ms) plain {plain_ms:.4f} "
+              f"ms sdpa {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+              f"softmax floor {floor_ms:.4f} ms; {100 * bound_ms / ms:.1f}% of "
+              f"bound, {lib_ms / ms:.2f}x sdpa"
+              + (f"; {designs[0]} ptxas: {regs}" if regs else ""))
         if all(r["name"] != name for r in rows):
             rows.append(dict(
                 name=name, route="cuda",
@@ -576,6 +665,8 @@ def phase_attention(dev):
                 replaces="stf_tpu/layers/pallas_attention.py:49",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                softmax_floor_ms=floor_ms, design=designs[0],
+                other_design_ms={d: times[d] for d in designs[1:]},
                 path=model,
             ))
     for name, err, plain_err, diff in attention_vs_f64(dev, 30.0):
@@ -1011,6 +1102,95 @@ def warm_medians(fns, n=5):
             for what, fn in fns.items()}
 
 
+@contextlib.contextmanager
+def window_head_design():
+    """Every B1 launch inside takes the window-head design (one block per
+    (window, head): PR 13's at TBC's 8x8 geometries), as `main_design`
+    chose before the head-group design; CUDA graphs captured earlier keep
+    the kernels they captured."""
+    import torch
+
+    from stf_tpu_torch.layers import attention_core as ac
+
+    main = ac.main_design
+    ac.main_design = lambda ws, hd, nh, dtype, group: (  # noqa: E731
+        "bf16_mma" if dtype == torch.bfloat16 else "window_head")
+    try:
+        yield
+    finally:
+        ac.main_design = main
+
+
+def designs_in_turns(calls):
+    """{name: (window-head median s, head-group median s)} of warm
+    synchronised calls, medians of 5 taken in turns: window-head,
+    head-group, head-group, window-head, so that drift shows in neither."""
+    import numpy as np
+
+    old, new = {k: [] for k in calls}, {k: [] for k in calls}
+    for turn in (old, new, new, old):
+        for what, fn in calls.items():
+            if turn is old:
+                with window_head_design():
+                    turn[what] += [timed(fn)[1] for _ in range(5)]
+            else:
+                turn[what] += [timed(fn)[1] for _ in range(5)]
+    return {k: (float(np.median(old[k])), float(np.median(new[k])))
+            for k in calls}
+
+
+def tier_designs_in_turns(tag, model, x, dev, smi, tier, **codec_kw):
+    """The full fused tier of `model` with B1's window-head design against
+    `tier` (the same tier, captured with the head-group design), both
+    graph replays: a second codec captures its compress and decompress
+    graphs under `window_head_design`, then each codec's warm compress and
+    fused decompress are timed in turns (window-head, head-group,
+    head-group, window-head; medians of 10), and one warm call each is
+    profiled for its device-busy time. Each codec's stream decodes to its
+    own symbols."""
+    import numpy as np
+    import torch
+
+    from stf_tpu_torch.models import Codec
+
+    with window_head_design():
+        old = Codec(model, coder="lane", device=dev, fused_encode=True,
+                    **codec_kw)
+        enc_old = strict(old.compress, x)
+        strict(old.decompress, enc_old["strings"], enc_old["shape"])
+    enc_new = strict(tier.compress, x)
+    for codec, enc in ((old, enc_old), (tier, enc_new)):
+        dec = strict(codec.decompress, enc["strings"], enc["shape"])
+        if not all(torch.equal(a, b) for a, b in zip(enc["symbols"],
+                                                     dec["symbols"])):
+            raise AssertionError(f"{tag}: a design's tier stream does not "
+                                 "decode to its symbols")
+    calls = {}
+    for name, codec, enc in (("window-head", old, enc_old),
+                             ("head-group", tier, enc_new)):
+        calls[name] = (
+            lambda c=codec: strict(c.compress, x),
+            lambda c=codec, e=enc: strict(c.decompress, e["strings"],
+                                          e["shape"]))
+    secs = {k: ([], []) for k in calls}
+    for turn in ("window-head", "head-group", "head-group", "window-head"):
+        for j in range(2):
+            secs[turn][j].extend(timed(calls[turn][j])[1] for _ in range(5))
+    med = {k: [float(np.median(v)) for v in secs[k]] for k in calls}
+    busy = {k: [profile_call(fn, f"{tag} {k}")[1] for fn in calls[k]]
+            for k in calls}
+    (oc, od), (nc, nd) = med["window-head"], med["head-group"]
+    print(f"{tag} full tier, B1 designs in turns ({smi}; graph replays, "
+          f"medians of 10): compress window-head {oc * 1e3:.3f} ms, "
+          f"head-group {nc * 1e3:.3f} ms ({oc / nc:.3f}x); fused decompress "
+          f"window-head {od * 1e3:.3f} ms, head-group {nd * 1e3:.3f} ms "
+          f"({od / nd:.3f}x); device busy, one profiled call: compress "
+          f"{busy['window-head'][0] * 1e3:.3f} / "
+          f"{busy['head-group'][0] * 1e3:.3f} ms, decompress "
+          f"{busy['window-head'][1] * 1e3:.3f} / "
+          f"{busy['head-group'][1] * 1e3:.3f} ms")
+
+
 def per_slice_decompress(codec, enc):
     """`codec`'s decompress of `enc` through the per-slice walk."""
     codec.fused = False
@@ -1281,6 +1461,17 @@ def phase_codec(dev, smi, name):
     warm = warm_medians(calls)
     print(f"{name} warm per call, median of 5 ({smi}): "
           + "; ".join(f"{k} {v * 1e3:.3f} ms" for k, v in warm.items()))
+    if name == "tbc":
+        print(f"tbc warm per call in PR 13's smokes (ms, medians of 5, H100 "
+              f"80GB HBM3 at 700 W): "
+              + "; ".join(f"{k} {v}" for k, v in TBC_PR13_MS.items()))
+        turns = designs_in_turns({k: calls[k] for k in (
+            "lane compress (B3, per-slice walk)", "per-slice decompress")})
+        print(f"tbc B1 designs in turns ({smi}; medians of 10): "
+              + "; ".join(f"{k} window-head {a * 1e3:.3f} ms, head-group "
+                          f"{b * 1e3:.3f} ms ({a / b:.3f}x)"
+                          for k, (a, b) in turns.items()))
+        tier_designs_in_turns("tbc", model, x, dev, smi, tiers["full"])
     # device-busy share of one warm call each, in a profiler window of its
     # own (the first window, untimed, pays the tracer's start-up)
     profiled = list(calls.items())[:3]
@@ -1424,6 +1615,15 @@ def phase_tbc_bf16(dev, smi):
     f32_hat = f32.decompress(f32_enc["strings"], f32_enc["shape"])["x_hat"]
     xf = torch.from_numpy(x).to(dev).float() / 255.0
     p16, p32 = psnr(dec["x_hat"], xf).item(), psnr(f32_hat, xf).item()
+    turns = designs_in_turns({
+        "per-slice bf16 compress": lambda: per_slice.compress(x),
+        "per-slice decompress": lambda: per_slice_decompress(tier, enc)})
+    print(f"tbc bf16 B1 designs in turns ({smi}; medians of 10): "
+          + "; ".join(f"{k} window-head {a * 1e3:.3f} ms, head-group "
+                      f"{b * 1e3:.3f} ms ({a / b:.3f}x)"
+                      for k, (a, b) in turns.items()))
+    tier_designs_in_turns("tbc bf16", model, x, dev, smi, tier,
+                          dtype=torch.bfloat16)
     print(f"tbc bf16 round trip ({BATCH}x{HEIGHT}x{WIDTH}, full tier; {smi}): "
           "stream = per-slice stream, symbols round trip, fused = per-slice "
           f"x_hat; B1 a compress {compress}, a decompress {decompress}; PSNR "
@@ -2798,9 +2998,11 @@ def ptxas_summary(log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            spills = (f"stack frame {m.group(1)} B, spill stores "
+                      f"{m.group(2)} B, loads {m.group(3)} B")
         m = re.search(r"Used (\d+) registers(.*)", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", m.group(2))
@@ -2860,8 +3062,8 @@ def main():
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    rows = (phase("attention", phase_attention, dev)
-            + phase("attention_bf16", phase_attention_bf16, dev)
+    rows = (phase("attention", phase_attention, dev, sm_mhz)
+            + phase("attention_bf16", phase_attention_bf16, dev, sm_mhz)
             + phase("lane_decode", phase_lane_decode, dev, sm_mhz)
             + phase("lane_encode", phase_lane_encode, dev, sm_mhz)
             + phase("layout_pin", phase_layout_pin, dev))

@@ -94,8 +94,26 @@
 // the store drops the padding ones (HD is even, so a lane's column pair
 // is kept or dropped whole). Rows stay HDP + 4 floats (f32) or the bf16
 // pitch below, so the fragment loads keep their 32 distinct banks. At
-// hd 4 half of every m16n8k8 tile multiplies zeros: these instances are
-// simple, not tuned (PERF.md section 6 has their times).
+// hd 4 half of every m16n8k8 tile multiplies zeros.
+//
+// TBC's 8x8 geometries (32 heads of 4-10 channels) run a second design,
+// the head group's (`window_attention_head_group_kernel` below), which
+// the wrapper launches there; the window-head instances above stay
+// callable at those widths (`_launch(..., design=...)`) so that one call
+// on the card times both. Why a second design: at hd 4 a (window, head)
+// is 64 x 64 x 4 products, so one block per (window, head) spent its time
+// around them: 98,304 blocks at TBC's stage 0, each staging 3 KB in half
+// sectors, zero-filling padding, re-reading its 16 KB bias from L2 in both
+// softmax passes and comparing labels on every logit, with 128-register
+// warps at 16 an SM. The head-group design keeps one block per (2 heads,
+// run of windows) resident: it reads the bias once, stages whole sectors
+// of both heads with one barrier a window, decides the penalty once a
+// window, computes the window walk by carries instead of divisions,
+// exponentiates with ex2 on pre-scaled logits (two FFMAs in f32, one in
+// bf16, each as exact as the f32 kernel's rounding of bias - max) and
+// uses m16n8k4 for q . k^T at hd 4. It is issue-bound (~500 instructions a
+// warp a window at hd 4): 2.2x the window-head design in f32 and 2.1x in
+// bf16 at stage 0 on an H100 (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -742,6 +760,544 @@ int launch_bf16_geometry(const __nv_bfloat16* q, const __nv_bfloat16* bs,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The head-group design (TBC's 8x8 windows at head widths 4, 6, 8 and 10,
+// 32 heads; f32 and bf16). See the header comment for why it exists. A
+// block owns G = 2 heads (4 row-block warps a head: warp w is head w / 4,
+// query rows 16 (w % 4) .. + 15) and walks windows: window i of block
+// chunk c is i * chunks + (c + i) % chunks (`chunks` from the host, one
+// wave), so that at step i every block is in the same run of `chunks`
+// windows and the windows of a column (TBC's mixed last column) fall on
+// every chunk in turn; (b, wp, wq) follow the walk by carries, without a
+// division. The next window's q, k, v (the group's G * HD contiguous
+// elements a token, 16-byte cp.async) and its 64 labels are staged while
+// this one computes (two buffers, one __syncthreads a window). Rows are
+// padded to P elements (P / 4 odd in f32, P / 8 odd in bf16), so the
+// fragment loads hit 32 distinct banks. The bias is read once a block: in
+// f32 into shared memory (rows of BP = 72, conflict-free float2 reads),
+// which leaves 80 registers a thread and 24 warps an SM; in bf16 into 32
+// registers a warp's fragment (16 warps an SM), which measured faster
+// there. The window's labels decide, by one warp vote, whether any label
+// differs; only such a window (a shifted map's last row and column) runs
+// the label compares and the TwoSum. The settings below were chosen on an
+// H100 (PERF.md section 6, tools/compare_window_attention.py builds
+// others with -D).
+
+#ifndef WINATTN_HG_GROUP
+#define WINATTN_HG_GROUP 2  // heads a block
+#endif
+#ifndef WINATTN_HG_STAMPS
+#define WINATTN_HG_STAMPS 0  // 1: block 0's warps sum clock64() by phase
+#endif
+#if WINATTN_HG_STAMPS
+__device__ unsigned long long hg_stamps[32 * 8];
+#endif
+
+template <typename T, int HD, int G>
+struct HeadGroupGeometry {
+  static constexpr int WS = 8, N = 64;
+  static constexpr int TEAM = 32 * 4 * G;
+  // f32 keeps the bias in shared memory, which frees the 32 registers a
+  // thread its fragment takes for 24 warps an SM; bf16 keeps it in
+  // registers at 16 warps an SM (each measured the faster for its type)
+  static constexpr bool BIAS_SMEM = sizeof(T) == 4;
+  static constexpr int MINB = BIAS_SMEM ? (G >= 6 ? 1 : 6 / G)
+                                        : (G >= 4 ? 1 : 4 / G);
+  static constexpr int ROW = G * HD;                // a token's slice
+  static constexpr int EPC = 16 / (int)sizeof(T);   // elements of 16 bytes
+  static constexpr int CE = chunk_elems<ROW, EPC>();  // elements a copy
+  static constexpr int CPR = ROW / CE;              // copies a slice
+  static constexpr int P0 = (ROW + EPC - 1) / EPC * EPC;
+  static constexpr int P = (P0 / EPC) % 2 == 1 ? P0 : P0 + EPC;
+  static constexpr int TILE = 3 * N * P;            // q, k, v of a window
+  static constexpr int BUF = TILE * (int)sizeof(T) + N * 4;  // + labels
+  static constexpr int BP = 72;  // bias row pitch in shared memory
+  static constexpr int BIAS = BIAS_SMEM ? G * N * BP * (int)sizeof(T) : 0;
+  static constexpr int SMEM = 2 * BUF + BIAS;
+  static_assert(HD % 2 == 0 && CE >= 2, "even head widths");
+  static_assert(BUF % 16 == 0, "16-byte aligned buffers");
+};
+
+// x = big + small for 3xTF32 (or 2 terms in bf16): big is x rounded to
+// TF32 (its low 13 bits cleared), small the exact rest, which the tensor
+// core reads as TF32 by ignoring its low 13 bits.
+// With TRUNC, big is x as it stands (the tensor core truncates it to
+// TF32) and small the rest after the truncation: one instruction fewer,
+// and about one bit less of each product (the bf16 P split uses it).
+template <bool TRUNC = false>
+__device__ __forceinline__ void split_tf32_rest(float x, uint32_t& big,
+                                                uint32_t& small) {
+  if constexpr (TRUNC) {
+    big = __float_as_uint(x);
+    small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+  } else {
+    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big));
+  }
+}
+
+// d += a . b on one m16n8k4 TF32 tile: a0 = A[g][t], a1 = A[g + 8][t],
+// b0 = B[t][g].
+__device__ __forceinline__ void mma_tf32_k4(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.44269504088896341f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// What it computes is what the window-head kernels compute: in f32 the
+// same two-pass softmax (pass 2 forms fma(s, scale, bias - m) where the
+// window's labels are uniform, the TwoSum form of the f32 kernel where
+// they are not) on 3xTF32 products; in bf16 the rounding specification
+// above, q.k^T on bf16 mma.sync (exact products) and P.v on TF32 with P in
+// two parts and v exact. Both take the softmax's 1 / sum after P.v.
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(HeadGroupGeometry<T, HD, G>::TEAM,
+                                  HeadGroupGeometry<T, HD, G>::MINB)
+window_attention_head_group_kernel(const T* __restrict__ qkv,
+                                   const T* __restrict__ bias,
+                                   const int32_t* __restrict__ labels,
+                                   T* __restrict__ out, int B, int H, int W,
+                                   int C, int nh, int chunks, float scale) {
+  using Geo = HeadGroupGeometry<T, HD, G>;
+  constexpr int WS = Geo::WS, N = Geo::N, P = Geo::P, TEAM = Geo::TEAM;
+  constexpr int CE = Geo::CE, CPR = Geo::CPR, ROW = Geo::ROW;
+  constexpr int DT = (HD + 7) / 8;  // 8-wide output tiles
+  constexpr bool BF16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char hg_smem[];
+
+  const int groups = nh / G;
+  const int hgrp = blockIdx.x % groups, chunk = blockIdx.x / groups;
+  const int Q = W / WS, nW = (H / WS) * Q, total = B * nW;
+  const int64_t C3 = 3 * (int64_t)C;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int hl = tid >> 7;                     // head in the group
+  const int r0 = ((tid >> 5) & 3) * 16 + g;    // rows r0 and r0 + 8
+  const int h = hgrp * G + hl;
+  // row r0's offset in a window's output (row r0 + 8 is W C further)
+  const unsigned row0 = ((unsigned)(r0 / WS) * W + r0 % WS) * (unsigned)C;
+#if WINATTN_HG_STAMPS
+  __shared__ unsigned long long stamp_sum[32 * 8];
+  for (int k = tid; k < 32 * 8; k += TEAM) stamp_sum[k] = 0;
+  __syncthreads();
+  long long last = clock64();
+#define HG_STAMP(k)                                                   \
+  if (lane == 0) {                                                    \
+    const long long now = clock64();                                  \
+    stamp_sum[((tid >> 5) & 31) * 8 + (k)] += now - last;             \
+    last = now;                                                       \
+  }
+#else
+#define HG_STAMP(k)
+#endif
+
+  auto tile = [&](int i) {
+    return reinterpret_cast<T*>(hg_smem + (i & 1) * Geo::BUF);
+  };
+  auto tile_labels = [&](int i) {
+    return reinterpret_cast<int32_t*>(hg_smem + (i & 1) * Geo::BUF +
+                                      Geo::TILE * (int)sizeof(T));
+  };
+  const int full = total / chunks, rest = total - full * chunks;
+  const int count = full + ((chunk + full) % chunks < rest ? 1 : 0);
+  // the walk: step i takes window i chunks + (chunk + i) % chunks, so the
+  // next step is chunks + 1 windows on, or 1 where the position wraps;
+  // (b, wp, wq) follow by carries, without a division. locate() returns
+  // the step's window index in its image and its top-left pixel
+  // (b H + 8 wp) W + 8 wq, and moves to the next step
+  const int R = H / WS;  // rows of windows
+  int pos = chunk, win_b = 0, win_p = 0, win_q = chunk;
+  while (win_q >= Q) win_q -= Q, ++win_p;
+  while (win_p >= R) win_p -= R, ++win_b;
+  auto locate = [&](int& win) -> int64_t {
+    win = win_p * Q + win_q;
+    const int64_t pix = ((int64_t)win_b * H + win_p * WS) * W + win_q * WS;
+    const int step = pos + 1 == chunks ? 1 : chunks + 1;
+    pos = pos + 1 == chunks ? 0 : pos + 1;
+    win_q += step;
+    while (win_q >= Q) win_q -= Q, ++win_p;
+    while (win_p >= R) win_p -= R, ++win_b;
+    return pix;
+  };
+  // a window's copies: COPIES of SCE elements, the same offsets in every
+  // window (32-bit: the host keeps 8 W 3C below 2^31)
+  constexpr unsigned COPIES = 3 * N * CPR;
+  const unsigned wc3 = (unsigned)W * (unsigned)C3;
+  auto stage = [&](int i, int64_t pix, int win) {
+    const T* base = qkv + pix * C3 + hgrp * ROW;
+    T* dst = tile(i);
+#pragma unroll
+    for (unsigned k = 0; k < (COPIES + TEAM - 1) / TEAM; ++k) {
+      const unsigned e = tid + k * TEAM;
+      if (COPIES % TEAM == 0 || e < COPIES) {
+        const unsigned which = e / (N * CPR), rem = e % (N * CPR);
+        const unsigned n = rem / CPR, c = rem % CPR;
+        cp_async<CE * (int)sizeof(T)>(
+            dst + (which * N + n) * P + c * CE,
+            base + ((n / WS) * wc3 + (n % WS) * (unsigned)C3 +
+                    which * (unsigned)C + c * CE));
+      }
+    }
+    if (labels != nullptr && tid < N / 4)
+      cp_async16(tile_labels(i) + 4 * tid, labels + (int64_t)win * N + 4 * tid);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  int64_t pix = 0;  // window i's top-left pixel
+  if (count > 0) {
+    if constexpr (Geo::BIAS > 0) {  // in window 0's copy group
+      constexpr int EPC = Geo::EPC, RC = N / EPC;  // 16-byte copies a row
+      T* bdst = reinterpret_cast<T*>(hg_smem + 2 * Geo::BUF);
+      const T* bsrc = bias + (int64_t)hgrp * G * N * N;
+      for (int e = tid; e < G * N * RC; e += TEAM)
+        cp_async16(bdst + (e / RC) * Geo::BP + (e % RC) * EPC,
+                   bsrc + (e / RC) * N + (e % RC) * EPC);
+    }
+    int win;
+    pix = locate(win);
+    stage(0, pix, win);
+  }
+
+  // this warp's bias fragment: rows r0, r0 + 8; keys 8n + 2t, 8n + 2t + 1:
+  // in 32 registers, or (BIASSMEM) the group's bias staged once into
+  // shared memory (rows of BP elements) and read in each pass
+  constexpr bool BIASSMEM = Geo::BIAS_SMEM;  // (see the geometry)
+  float bv[BIASSMEM ? 1 : 8][4];
+  const T* bsm = reinterpret_cast<const T*>(hg_smem + 2 * Geo::BUF) +
+                 (hl * N + r0) * Geo::BP + 2 * t;
+  if constexpr (!BIASSMEM) {
+    const T* brow = bias + ((int64_t)h * N + r0) * N + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 b0 = pair_f32(brow + 8 * n);
+      const float2 b1 = pair_f32(brow + 8 * N + 8 * n);
+      bv[n][0] = b0.x, bv[n][1] = b0.y, bv[n][2] = b1.x, bv[n][3] = b1.y;
+    }
+  }
+  auto bias4 = [&](int n, float (&b)[4]) {
+    if constexpr (BIASSMEM) {
+      const float2 b0 = pair_f32(bsm + 8 * n);
+      const float2 b1 = pair_f32(bsm + 8 * Geo::BP + 8 * n);
+      b[0] = b0.x, b[1] = b0.y, b[2] = b1.x, b[3] = b1.y;
+    } else {
+      b[0] = bv[n][0], b[1] = bv[n][1], b[2] = bv[n][2], b[3] = bv[n][3];
+    }
+  };
+
+  for (int i = 0; i < count; ++i) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // window i landed; window i - 1's tile is free
+    HG_STAMP(0)
+    int next_win = 0;
+    const int64_t next_pix = i + 1 < count ? locate(next_win) : 0;
+    if (i + 1 < count) stage(i + 1, next_pix, next_win);
+    HG_STAMP(1)
+    const T* qs = tile(i) + hl * HD;
+    const T* ks = qs + N * P;
+    const T* vs = ks + N * P;
+    const int32_t* lab = tile_labels(i);
+    bool uniform = true;
+    if (labels != nullptr) {
+      const int l0 = lab[0];
+      uniform = __all_sync(kFull, lab[lane] == l0 && lab[lane + 32] == l0);
+    }
+    HG_STAMP(2)
+
+    // S = q k^T for the warp's 16 rows, 8 tiles of 16 x 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+    if constexpr (!BF16) {
+      // columns past HD read as 0: k8 steps, and k4 for a last 2 or 4
+      auto at = [&](const T* m, int row, int col) {
+        return col < HD ? to_f32(m[row * P + col]) : 0.f;
+      };
+#pragma unroll
+      for (int c0 = 0; c0 < HD; c0 += 8) {
+        if (HD - c0 > 4) {
+          uint32_t ab[4], as[4];
+          split_tf32_rest(at(qs, r0, c0 + t), ab[0], as[0]);
+          split_tf32_rest(at(qs, r0 + 8, c0 + t), ab[1], as[1]);
+          split_tf32_rest(at(qs, r0, c0 + t + 4), ab[2], as[2]);
+          split_tf32_rest(at(qs, r0 + 8, c0 + t + 4), ab[3], as[3]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            uint32_t kb0, ks0, kb1, ks1;
+            split_tf32_rest(at(ks, 8 * n + g, c0 + t), kb0, ks0);
+            split_tf32_rest(at(ks, 8 * n + g, c0 + t + 4), kb1, ks1);
+            mma_tf32(s[n], as, kb0, kb1);
+            mma_tf32(s[n], ab, ks0, ks1);
+            mma_tf32(s[n], ab, kb0, kb1);
+          }
+        } else {
+          uint32_t ab0, as0, ab1, as1;
+          split_tf32_rest(at(qs, r0, c0 + t), ab0, as0);
+          split_tf32_rest(at(qs, r0 + 8, c0 + t), ab1, as1);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            uint32_t kb, kr;
+            split_tf32_rest(at(ks, 8 * n + g, c0 + t), kb, kr);
+            mma_tf32_k4(s[n], as0, as1, kb);
+            mma_tf32_k4(s[n], ab0, ab1, kr);
+            mma_tf32_k4(s[n], ab0, ab1, kb);
+          }
+        }
+      }
+    } else {
+      // bf16 pairs (col, col + 1) as words, 0 past HD; q scaled and
+      // rounded to bf16: k16 steps, and k8 for a last 8 or fewer
+      auto word = [&](const T* m, int row, int col) -> uint32_t {
+        return col < HD ? *reinterpret_cast<const uint32_t*>(m + row * P + col)
+                        : 0u;
+      };
+      auto qword = [&](int row, int col) -> uint32_t {
+        const uint32_t w = word(qs, row, col);
+        return pack_bf16x2(bf16_bits_lo(w) * scale, bf16_bits_hi(w) * scale);
+      };
+#pragma unroll
+      for (int c0 = 0; c0 < HD; c0 += 16) {
+        if (HD - c0 > 8) {
+          const uint32_t a[4] = {qword(r0, c0 + 2 * t), qword(r0 + 8, c0 + 2 * t),
+                                 qword(r0, c0 + 2 * t + 8),
+                                 qword(r0 + 8, c0 + 2 * t + 8)};
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            mma_bf16_k16(s[n], a, word(ks, 8 * n + g, c0 + 2 * t),
+                         word(ks, 8 * n + g, c0 + 2 * t + 8));
+        } else {
+          const uint32_t a0 = qword(r0, c0 + 2 * t);
+          const uint32_t a1 = qword(r0 + 8, c0 + 2 * t);
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            mma_bf16_k8(s[n], a0, a1, word(ks, 8 * n + g, c0 + 2 * t));
+        }
+      }
+    }
+
+    HG_STAMP(3)
+    // softmax over the 4 lanes of a row; s[n][0..1] row r0, s[n][2..3]
+    // row r0 + 8, keys 8n + 2t + {0, 1}. Labels are read only in a window
+    // whose labels differ
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    const int li0 = uniform ? 0 : lab[r0], li1 = uniform ? 0 : lab[r0 + 8];
+    auto differ = [&](int n, int j) {
+      return lab[8 * n + 2 * t + (j & 1)] != (j < 2 ? li0 : li1);
+    };
+    // (two copies of the loop, so that a uniform window runs no label code)
+    auto logits = [&](bool mixed) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float bn[4];
+        bias4(n, bn);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = BF16 ? s[n][j] + bn[j] : fmaf(s[n][j], scale, bn[j]);
+          if (mixed && differ(n, j)) v += -100.f;
+          if (BF16) s[n][j] = v;
+          if (j < 2) mx0 = fmaxf(mx0, v); else mx1 = fmaxf(mx1, v);
+        }
+      }
+    };
+    if (uniform)
+      logits(false);
+    else
+      logits(true);
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, o));
+    }
+    HG_STAMP(4)
+    // exponents in base 2 (ex2.approx): exp(x - m) = 2^(x log2(e) -
+    // m log2(e)), the product x log2(e) exact inside an FFMA and the
+    // rounding of m log2(e) a shift of the whole row, which the
+    // normalisation cancels
+    const float m0 = mx0 * kLog2e, m1 = mx1 * kLog2e;
+    if (BF16) {  // exp(l - m) in one FFMA
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[n][j] = ex2_approx(fmaf(s[n][j], kLog2e, -(j < 2 ? m0 : m1)));
+    } else if (uniform) {
+      // 2^(s scale log2(e) + fma(b, log2(e), -m log2(e))): two FFMAs
+      const float sl2e = scale * kLog2e;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float bn[4];
+        bias4(n, bn);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[n][j] = ex2_approx(
+              fmaf(s[n][j], sl2e, fmaf(bn[j], kLog2e, -(j < 2 ? m0 : m1))));
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float bn[4];
+        bias4(n, bn);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // bias + penalty as the unevaluated sum hi + lo (TwoSum)
+          float hi = bn[j], lo = 0.f;
+          if (differ(n, j)) {
+            hi = bn[j] + -100.f;
+            const float bb = hi - bn[j];
+            lo = (bn[j] - (hi - bb)) + (-100.f - bb);
+          }
+          s[n][j] = ex2_approx(
+              ((hi - (j < 2 ? mx0 : mx1)) + fmaf(s[n][j], scale, lo)) * kLog2e);
+        }
+      }
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum0 += __shfl_xor_sync(kFull, sum0, o);
+      sum1 += __shfl_xor_sync(kFull, sum1, o);
+    }
+    const float rinv0 = 1.f / sum0, rinv1 = 1.f / sum1;
+    HG_STAMP(5)
+
+    // out = (e . v) / sum, rows r0 and r0 + 8 of the window at `pix`
+    T* obase = out + pix * C + h * HD;
+    auto at_row = [&](int r) {  // r is r0 or r0 + 8
+      return obase + (r == r0 ? row0 : row0 + (unsigned)W * (unsigned)C);
+    };
+    // S's accumulator tile n is the A fragment of key tile n with the keys
+    // permuted (column t <-> key 2t, t + 4 <-> 2t + 1), v's rows read in
+    // the same order. ACC accumulators a tile, key tile n into n % ACC,
+    // summed in order
+    constexpr int ACC = 2;
+    float oa[ACC][DT][4];
+#pragma unroll
+    for (int a = 0; a < ACC; ++a)
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) oa[a][d][j] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float (&o)[DT][4] = oa[n % ACC];
+      // P's split truncates in bf16 (a 2^-21 error is far below bf16's)
+      uint32_t ab[4], as[4];
+      split_tf32_rest<BF16>(s[n][0], ab[0], as[0]);
+      split_tf32_rest<BF16>(s[n][2], ab[1], as[1]);
+      split_tf32_rest<BF16>(s[n][1], ab[2], as[2]);
+      split_tf32_rest<BF16>(s[n][3], ab[3], as[3]);
+      // v's channel 8d + g is output column g of tile d: past HD it reads
+      // a neighbour's (finite) values into a column that is never stored
+      const T* v0 = vs + (8 * n + 2 * t) * P + g;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float x0 = to_f32(v0[8 * d]);
+        const float x1 = to_f32(v0[P + 8 * d]);
+        if constexpr (BF16) {  // v is exact in TF32
+          mma_tf32(o[d], as, __float_as_uint(x0), __float_as_uint(x1));
+          mma_tf32(o[d], ab, __float_as_uint(x0), __float_as_uint(x1));
+        } else {
+          uint32_t vb0, vs0, vb1, vs1;
+          split_tf32_rest(x0, vb0, vs0);
+          split_tf32_rest(x1, vb1, vs1);
+          mma_tf32(o[d], as, vb0, vb1);
+          mma_tf32(o[d], ab, vs0, vs1);
+          mma_tf32(o[d], ab, vb0, vb1);
+        }
+      }
+    }
+    float (&o)[DT][4] = oa[0];
+#pragma unroll
+    for (int a = 1; a < ACC; ++a)
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[d][j] += oa[a][d][j];
+    HG_STAMP(6)
+    // o[d][0..1] row r0, o[d][2..3] row r0 + 8, channels 8d + 2t + {0, 1}
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      if (8 * d + 2 * t >= HD) continue;
+      store_pair(at_row(r0) + 8 * d + 2 * t, o[d][0] * rinv0, o[d][1] * rinv0);
+      store_pair(at_row(r0 + 8) + 8 * d + 2 * t, o[d][2] * rinv1,
+                 o[d][3] * rinv1);
+    }
+    pix = next_pix;
+    HG_STAMP(7)
+  }
+#if WINATTN_HG_STAMPS
+  if (blockIdx.x == 0 && lane == 0)
+    for (int k = 0; k < 8; ++k)
+      hg_stamps[((tid >> 5) & 31) * 8 + k] += stamp_sum[((tid >> 5) & 31) * 8 + k];
+#endif
+#undef HG_STAMP
+}
+
+template <typename T, int HD>
+int launch_head_group(const T* qkv, const T* bias, const int32_t* labels,
+                      T* out, int B, int H, int W, int C, int nh, int chunks,
+                      float scale, cudaStream_t stream) {
+  using Geo = HeadGroupGeometry<T, HD, WINATTN_HG_GROUP>;
+  auto kernel = window_attention_head_group_kernel<T, HD, WINATTN_HG_GROUP>;
+  if (Geo::SMEM > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int groups = nh / WINATTN_HG_GROUP;
+  kernel<<<groups * chunks, Geo::TEAM, Geo::SMEM, stream>>>(
+      qkv, bias, labels, out, B, H, W, C, nh, chunks, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int head_group_blocks_per_sm() {
+  using Geo = HeadGroupGeometry<T, HD, WINATTN_HG_GROUP>;
+  auto kernel = window_attention_head_group_kernel<T, HD, WINATTN_HG_GROUP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::SMEM);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      Geo::TEAM, Geo::SMEM);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// The head-group instances: TBC's head widths at 8x8 windows.
+#define STF_HEAD_GROUP_WIDTHS(X) X(4) X(6) X(8) X(10)
+
 }  // namespace
 
 extern "C" {
@@ -804,6 +1360,68 @@ int stf_window_attention_bf16(const void* qkv, const void* bias,
   if (design == 1)
     return launch_bf16_geometry<false>(q, bs, lb, o, B, H, W, ws, C, nh,
                                        scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+#if WINATTN_HG_STAMPS
+// Block 0's clock64() sums by (warp, phase) since the last call, then 0.
+int stf_window_attention_head_group_stamps(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, hg_stamps, sizeof(hg_stamps));
+  unsigned long long zero[32 * 8] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(hg_stamps, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
+
+// Heads a block of the head-group design (the host's plan needs it).
+int stf_window_attention_head_group_heads() { return WINATTN_HG_GROUP; }
+
+// Blocks of the head-group instance (8x8 windows, head width hd; bf16 or
+// f32) that fit on one SM at once; 0 for a width without one, minus a CUDA
+// error code if the query failed.
+int stf_window_attention_head_group_blocks(int32_t hd, int32_t bf16) {
+#define STF_HG_BLOCKS(HD_)                                               \
+  if (hd == HD_)                                                         \
+    return bf16 ? head_group_blocks_per_sm<__nv_bfloat16, HD_>()         \
+                : head_group_blocks_per_sm<float, HD_>();
+  STF_HEAD_GROUP_WIDTHS(STF_HG_BLOCKS)
+#undef STF_HG_BLOCKS
+  return 0;
+}
+
+// The head-group design (see above) on f32 (bf16 = 0) or bf16 (bf16 = 1)
+// qkv, bias and out, as `stf_window_attention` and
+// `stf_window_attention_bf16` take them, for 8x8 windows, head widths 4,
+// 6, 8 and 10 and heads a multiple of the group; `chunks` blocks a head
+// group, each walking every chunks-th window. labels 16-byte aligned.
+int stf_window_attention_head_group(const void* qkv, const void* bias,
+                                    const void* labels, void* out,
+                                    int32_t B, int32_t H, int32_t W,
+                                    int32_t ws, int32_t C, int32_t nh,
+                                    float scale, int32_t bf16,
+                                    int32_t chunks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int hd = C / nh;
+  if (ws != 8 || nh % WINATTN_HG_GROUP || chunks < 1 ||
+      (int64_t)8 * W * 3 * C >= ((int64_t)1 << 31) ||
+      (uintptr_t)qkv % 16 || (uintptr_t)out % 16 ||
+      (uintptr_t)labels % 16 ||
+      (uintptr_t)bias % 16)
+    return (int)cudaErrorInvalidValue;
+  const int32_t* lb = (const int32_t*)labels;
+#define STF_HG(HD_)                                                          \
+  if (hd == HD_) {                                                           \
+    if (bf16)                                                                \
+      return launch_head_group<__nv_bfloat16, HD_>(                          \
+          (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)bias, lb,         \
+          (__nv_bfloat16*)out, B, H, W, C, nh, chunks, scale, st);           \
+    return launch_head_group<float, HD_>((const float*)qkv,                  \
+                                         (const float*)bias, lb,             \
+                                         (float*)out, B, H, W, C, nh,        \
+                                         chunks, scale, st);                 \
+  }
+  STF_HEAD_GROUP_WIDTHS(STF_HG)
+#undef STF_HG
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,6 +33,7 @@ in f32 only.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -180,16 +181,78 @@ def window_attention(qkv, bias, labels, window: int, scale: float):
     return WindowAttentionFunction.apply(qkv, bias, labels, window, scale)
 
 
-# the bf16 instances' two designs for the products, by the entry point's
-# `design` argument: bf16 mma.sync (the codec's) and TF32 on the converted
-# values (kept so that the smoke times the two side by side)
+# B1's designs, by `_launch`'s `design` argument. One block per (window,
+# head): "window_head" in f32 (3xTF32 mma.sync), and in bf16 "bf16_mma"
+# (bf16 mma.sync) or "tf32" (TF32 on the converted values). One block per
+# head group that walks windows: "head_group", at TBC's 8x8 geometries
+# (`HEAD_GROUP_WIDTHS`, heads a multiple of the group), in both dtypes.
+# `main_design` is the one the wrapper launches; the others stay callable
+# so that the smoke times them side by side on one card.
 BF16_DESIGNS = {"bf16_mma": 0, "tf32": 1}
+HEAD_GROUP = "head_group"
+HEAD_GROUP_WIDTHS = (4, 6, 8, 10)  # at 8x8 windows
 
 
-def _launch(qkv, bias, labels, window: int, scale: float,
-            design: str = "bf16_mma"):
+def head_group_fits(window: int, head_dim: int, num_heads: int,
+                    group: int) -> bool:
+    """Whether the head-group design has an instance for this geometry."""
+    return (window == 8 and head_dim in HEAD_GROUP_WIDTHS
+            and num_heads % group == 0)
+
+
+def main_design(window: int, head_dim: int, num_heads: int, dtype,
+                group: int) -> str:
+    """The design the wrapper launches: the head group's at TBC's 8x8
+    geometries (faster there on an H100, PERF.md section 6), else one
+    block per (window, head)."""
+    if head_group_fits(window, head_dim, num_heads, group):
+        return HEAD_GROUP
+    return "bf16_mma" if dtype == torch.bfloat16 else "window_head"
+
+
+def head_group_plan(windows: int, num_heads: int, group: int, sms: int,
+                    blocks_per_sm: int):
+    """(head groups, window chunks) of a head-group launch over `windows`
+    windows (batch x windows an image): one block per (head group, chunk),
+    as many chunks as fill the card's resident blocks once, at most one a
+    window. Block j takes head group j % groups and chunk j // groups."""
+    groups = num_heads // group
+    chunks = max(1, min(windows, sms * blocks_per_sm // groups))
+    return groups, chunks
+
+
+def head_group_walk(chunk: int, chunks: int, windows: int):
+    """The windows (flat, batch-major) that block chunk `chunk` walks, in
+    order, as the kernel walks them: step i takes window
+    i * chunks + (chunk + i) % chunks, so every step's blocks share one
+    run of `chunks` windows and the windows of a column (a shifted map's
+    mixed last column) fall on every chunk in turn."""
+    full, rest = divmod(windows, chunks)
+    count = full + ((chunk + full) % chunks < rest)
+    return [i * chunks + (chunk + i) % chunks for i in range(count)]
+
+
+@functools.cache
+def _head_group_shape(device_index: int, head_dim: int, bf16: bool):
+    """(heads a block, blocks an SM, SMs) of the head-group instance on a
+    card, read once per (card, width, dtype): the codec's first call of a
+    shape runs eagerly, so no CUDA-graph capture queries the card."""
+    lib = _native.load("winattn")
+    group = lib.stf_window_attention_head_group_heads()
+    with torch.cuda.device(device_index):
+        blocks = lib.stf_window_attention_head_group_blocks(head_dim, int(bf16))
+    if blocks < 1:
+        raise RuntimeError(
+            f"head-group window_attention for head dim {head_dim} fits no "
+            f"block on the card ({blocks})")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return group, blocks, sms
+
+
+def _launch(qkv, bias, labels, window: int, scale: float, design=None):
     """Kernel B1 on CUDA tensors, after checking every operand; `design`
-    picks the bf16 instances' products (`BF16_DESIGNS`)."""
+    picks one of B1's designs (the note above `BF16_DESIGNS`), by default
+    `main_design`'s."""
     dev = qkv.device
     if qkv.dim() != 4 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, H, W, 3C), got {tuple(qkv.shape)}")
@@ -213,15 +276,45 @@ def _launch(qkv, bias, labels, window: int, scale: float,
             "16-byte runs of qkv and pairs of bias values)"
         )
     lib = _native.load("winattn")
-    if not lib.stf_window_attention_supported(N, C // nh):
+    hd = C // nh
+    if not lib.stf_window_attention_supported(N, hd):
         raise ValueError(
-            f"no window_attention kernel for N={N}, head dim {C // nh}"
+            f"no window_attention kernel for N={N}, head dim {hd}"
         )
+    bf16 = dtype == torch.bfloat16
+    tbc = ws == 8 and hd in HEAD_GROUP_WIDTHS  # the head group's widths
+    if tbc:
+        group, blocks, sms = _head_group_shape(dev.index, hd, bf16)
+    if design is None:
+        design = main_design(ws, hd, nh, dtype, group if tbc else 1)
+    if design == HEAD_GROUP:
+        if not (tbc and head_group_fits(ws, hd, nh, group)):
+            raise ValueError(f"no head-group window_attention kernel for "
+                             f"N={N}, head dim {hd}, {nh} heads")
+        if 8 * W * C3 >= 2 ** 31:
+            raise ValueError("the head-group design takes maps of 8 W 3C "
+                             "below 2^31 elements (32-bit offsets in a window)")
+        if bias.data_ptr() % 16 or (labels is not None
+                                    and labels.data_ptr() % 16):
+            raise ValueError("bias and labels must be 16-byte aligned (the "
+                             "head-group design stages them with 16-byte "
+                             "copies)")
+        _, chunks = head_group_plan(B * (H // ws) * (W // ws), nh, group,
+                                    sms, blocks)
+    elif design not in (BF16_DESIGNS if bf16 else ("window_head",)):
+        raise ValueError(f"no {design!r} design of window_attention in "
+                         f"{dtype}")
     out = torch.empty((B, H, W, C), dtype=dtype, device=dev)
     lab = None if labels is None else labels.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if dtype == torch.bfloat16:
+        if design == HEAD_GROUP:
+            rc = lib.stf_window_attention_head_group(
+                qkv.data_ptr(), bias.data_ptr(), lab, out.data_ptr(),
+                B, H, W, ws, C, nh, bf16_scale(scale) if bf16 else float(scale),
+                int(bf16), chunks, stream,
+            )
+        elif bf16:
             rc = lib.stf_window_attention_bf16(
                 qkv.data_ptr(), bias.data_ptr(), lab, out.data_ptr(),
                 B, H, W, ws, C, nh, bf16_scale(scale), BF16_DESIGNS[design],
@@ -237,7 +330,7 @@ def _launch(qkv, bias, labels, window: int, scale: float,
             "window_attention launch failed: "
             f"{lib.stf_window_attention_error(rc).decode()}"
         )
-    _native.launch_counts[launch_key(ws, C // nh, dtype)] += 1
+    _native.launch_counts[launch_key(ws, hd, dtype)] += 1
     return out
 
 
@@ -260,6 +353,15 @@ def _declare(lib):
     lib.stf_window_attention_bf16.argtypes = [
         vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32,
         vp,
+    ]
+    lib.stf_window_attention_head_group_heads.restype = ctypes.c_int
+    lib.stf_window_attention_head_group_heads.argtypes = []
+    lib.stf_window_attention_head_group_blocks.restype = ctypes.c_int
+    lib.stf_window_attention_head_group_blocks.argtypes = [i32, i32]
+    lib.stf_window_attention_head_group.restype = ctypes.c_int
+    lib.stf_window_attention_head_group.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32,
+        i32, vp,
     ]
     lib.stf_window_attention_error.restype = ctypes.c_char_p
     lib.stf_window_attention_error.argtypes = [ctypes.c_int]

@@ -13,7 +13,6 @@ work there.
 
 import os
 import secrets
-import socket
 import subprocess
 import sys
 import tempfile
@@ -24,12 +23,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 # seconds a rank's collectives wait for the others before raising
 PG_TIMEOUT_S = 120
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 class RankGroup:
@@ -44,11 +37,10 @@ class RankGroup:
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [ROOT, HERE, os.environ.get("PYTHONPATH", "")]),
             OMP_NUM_THREADS="1")
-        port = free_port()
         host, lport = self.listener.address
         self.procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(rank),
-             str(world), str(port), f"{host}:{lport}", self.key.hex()],
+             str(world), f"{host}:{lport}", self.key.hex()],
             env=env, stdout=self.log, stderr=subprocess.STDOUT)
             for rank in range(world)]
         self.conns = [None] * world
@@ -57,6 +49,14 @@ class RankGroup:
             for _ in range(world):
                 conn = self.listener.accept()
                 self.conns[conn.recv()] = conn
+            # rank 0's store listens on a port the system gave it (no port
+            # chosen here and bound later, which another process can take
+            # between the two); the other ranks meet it there
+            if not self.conns[0].poll(start_timeout):
+                raise OSError("rank 0 sent no store port")
+            port = self.conns[0].recv()
+            for conn in self.conns[1:]:
+                conn.send(port)
         except OSError:
             self.close()
             raise AssertionError("the ranks did not connect within "
@@ -119,7 +119,7 @@ class RankGroup:
         os.unlink(self.log.name)
 
 
-def _serve(rank: int, world: int, port: int, parent: str, key: str):
+def _serve(rank: int, world: int, parent: str, key: str):
     from datetime import timedelta
 
     import torch
@@ -129,12 +129,19 @@ def _serve(rank: int, world: int, port: int, parent: str, key: str):
     host, lport = parent.rsplit(":", 1)
     conn = Client((host, int(lport)), authkey=bytes.fromhex(key))
     conn.send(rank)
+    timeout = timedelta(seconds=PG_TIMEOUT_S)
+    if rank == 0:  # the store binds port 0: the system picks a free one
+        store = dist.TCPStore("localhost", 0, world, is_master=True,
+                              timeout=timeout, wait_for_workers=False)
+        conn.send(store.port)
+    else:
+        store = dist.TCPStore("localhost", conn.recv(), world,
+                              is_master=False, timeout=timeout)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=PG_TIMEOUT_S))
+                      MASTER_PORT=str(store.port))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timeout)
     this = sys.modules[__name__]
     while True:
         msg = conn.recv()
@@ -410,5 +417,4 @@ def distill_pair():
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    _serve(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-           sys.argv[4], sys.argv[5])
+    _serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -32,8 +32,8 @@ def dev():
 
 
 def _attn_inputs(dev, ws, hd, shifted, hw_windows=(2, 3), seed=0, batch=2,
-                 bias_scale=1.0):
-    nh, N = 8, ws * ws
+                 bias_scale=1.0, nh=8):
+    N = ws * ws
     C = nh * hd
     H, W = hw_windows[0] * ws, hw_windows[1] * ws
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -123,6 +123,83 @@ def test_window_attention_kernel_edge_cases(dev, ws, hd, case):
         assert err <= (plain.double() - exact).abs().max().item()
 
 
+# B1's two designs at TBC's 8x8 geometries (32 heads of widths 4, 6, 8
+# and 10): the head group's (the wrapper's) and the window-head design it
+# replaced, each against the plain version and deterministic
+TBC_WIDTHS = [4, 6, 8, 10]
+TBC_DESIGNS = ["window_head", "head_group"]
+
+
+@pytest.mark.parametrize("design", TBC_DESIGNS)
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("hd", TBC_WIDTHS)
+def test_window_attention_tbc_designs_match_plain(dev, hd, shifted, design):
+    qkv, bias, labels = _attn_inputs(dev, 8, hd, shifted, hw_windows=(4, 6),
+                                     seed=11, nh=32)
+    key = ac.launch_key(8, hd)
+    before = _native.launch_counts[key]
+    out = ac._launch(qkv, bias, labels, 8, hd ** -0.5, design)
+    again = ac._launch(qkv, bias, labels, 8, hd ** -0.5, design)
+    plain = ac.window_attention_plain(qkv, bias, labels, 8, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert _native.launch_counts[key] == before + 2
+    assert (out - plain).abs().max().item() <= 1e-5
+    assert torch.equal(out, again)
+    # the wrapper launches the head group's design
+    assert torch.equal(ac.window_attention(qkv, bias, labels, 8, hd ** -0.5),
+                       ac._launch(qkv, bias, labels, 8, hd ** -0.5,
+                                  "head_group"))
+
+
+# the edge cases above at TBC's geometries for both designs, and TBC's own
+# map (stage 2's 64x96 at 8x8: only the last row and column of windows
+# carry mixed labels; the bias x30 makes the -100 penalty decide rows
+# there), each region held to the tolerance on its own; labels that are
+# all equal take the uniform path and give the bits of no labels. With
+# the bias x30 (logits of about +-100) the f32 plain version itself is up
+# to ~1e-5 from an f64 one at 32 heads, so those two cases hold both
+# designs to the f64 plain version instead: within 1e-5, and no farther
+# than the f32 plain version
+@pytest.mark.parametrize("design", TBC_DESIGNS)
+@pytest.mark.parametrize("case", ["batch1", "one_window", "odd_windows",
+                                  "bias_x30", "tbc_map", "uniform_labels"])
+@pytest.mark.parametrize("hd", TBC_WIDTHS)
+def test_window_attention_tbc_designs_edge_cases(dev, hd, case, design):
+    kw = {"batch1": dict(batch=1), "one_window": dict(hw_windows=(1, 1)),
+          "odd_windows": dict(hw_windows=(3, 5)),
+          "bias_x30": dict(bias_scale=30.0, hw_windows=(16, 24)),
+          "tbc_map": dict(bias_scale=30.0, hw_windows=(8, 12)),
+          "uniform_labels": dict(hw_windows=(3, 5))}[case]
+    qkv, bias, labels = _attn_inputs(dev, 8, hd, True, seed=13, nh=32, **kw)
+    scale = hd ** -0.5
+    if case == "uniform_labels":
+        labels = torch.zeros_like(labels)
+    out = ac._launch(qkv, bias, labels, 8, scale, design)
+    again = ac._launch(qkv, bias, labels, 8, scale, design)
+    plain = ac.window_attention_plain(qkv, bias, labels, 8, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)  # no atomics, a fixed summation order
+    if case not in ("bias_x30", "tbc_map"):
+        assert (out - plain).abs().max().item() <= 1e-5
+    if case == "uniform_labels":
+        assert torch.equal(out, ac._launch(qkv, bias, None, 8, scale, design))
+    if case in ("bias_x30", "tbc_map"):
+        exact = ac.window_attention_plain(qkv.double(), bias.double(), labels,
+                                          8, scale)
+        err = (out.double() - exact).abs()
+        assert err.max().item() <= 1e-5
+        assert err.max().item() <= (plain.double() - exact).abs().max().item()
+    if case == "tbc_map":
+        lab = labels.cpu().numpy()
+        mixed = (lab != lab[:, :1]).any(1).reshape(8, 12)
+        assert mixed[-1].all() and mixed[:, -1].all()
+        assert not mixed[:-1, :-1].any()
+        by_window = err.reshape(2, 8, 8, 12, 8, -1).amax((0, 2, 4, 5))
+        assert by_window[torch.from_numpy(mixed).to(dev)].max().item() <= 1e-5
+        assert by_window[torch.from_numpy(~mixed).to(dev)].max().item() <= 1e-5
+
+
 def test_window_attention_rejects_bad_inputs(dev):
     qkv, bias, labels = _attn_inputs(dev, 4, 40, True)
     with pytest.raises(TypeError):
@@ -163,6 +240,29 @@ def test_window_attention_bf16_kernel_matches_plain(dev, ws, hd, shifted,
     # the wrapper launches the codec's design
     assert torch.equal(ac.window_attention(qkv, bias, labels, ws, hd ** -0.5),
                        ac._launch(qkv, bias, labels, ws, hd ** -0.5))
+
+
+# the bf16 instances' three designs at TBC's geometries, 32 heads: each
+# within one bf16 ulp of the bf16 plain version and deterministic
+@pytest.mark.parametrize("design", ["bf16_mma", "tf32", "head_group"])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("hd", TBC_WIDTHS)
+def test_window_attention_bf16_tbc_designs_match_plain(dev, hd, shifted,
+                                                       design):
+    from _bf16 import ulp_errors
+
+    qkv, bias, labels = _attn_inputs(dev, 8, hd, shifted, seed=17,
+                                     hw_windows=(4, 6), nh=32)
+    qkv, bias = qkv.to(torch.bfloat16), bias.to(torch.bfloat16)
+    out = ac._launch(qkv, bias, labels, 8, hd ** -0.5, design)
+    again = ac._launch(qkv, bias, labels, 8, hd ** -0.5, design)
+    plain = ac.window_attention_plain(qkv, bias, labels, 8, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert ulp_errors(out, plain).max().item() <= 1.0
+    assert torch.equal(ac.window_attention(qkv, bias, labels, 8, hd ** -0.5),
+                       ac._launch(qkv, bias, labels, 8, hd ** -0.5,
+                                  "head_group"))
 
 
 def test_window_attention_bf16_rejects_mixed_inputs(dev):
