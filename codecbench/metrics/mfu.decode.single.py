@@ -1,0 +1,7 @@
+"""The transforms' FLOPs of decode calls at each dtype's peak over the calls'
+wall time, %."""
+from codecbench.harness import readers
+
+
+def read(ctx):
+    return readers.mfu_pct(ctx, "decode")
