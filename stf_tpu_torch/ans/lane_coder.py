@@ -244,6 +244,14 @@ def fixed_overhead_bytes(n_segments: int) -> int:
     return 8 + n_segments * (4 * (1 + 2 * GROUPS) + 4 * GROUPS * K)
 
 
+def framing_bytes(segments) -> int:
+    """Bytes of `pack_lane_stream(segments)` that carry no symbol: the
+    `fixed_overhead_bytes` and the 2 bytes that pad an odd count of a
+    segment's words to a whole u32."""
+    odd = sum(int(np.sum(seg.word_counts)) & 1 for seg in segments)
+    return fixed_overhead_bytes(len(segments)) + 2 * odd
+
+
 def unpack_lane_stream(buf: bytes):
     """Inverse of pack_lane_stream: a list of LaneStream segments. Checks
     the format word and every section's extent, so truncation or a layout

@@ -38,6 +38,7 @@ import functools
 import torch
 
 from .. import _native
+from ..utils import tracing
 
 
 def partition_qkv(qkv: torch.Tensor, window: int, num_heads: int):
@@ -155,7 +156,7 @@ class WindowAttentionFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         qkv, bias, labels = ctx.saved_tensors
         # a profiler range, so a trace can separate B1's backward
-        with torch.profiler.record_function("window_attention_backward"):
+        with tracing.profiler_range("window_attention_backward"):
             dqkv, dbias = window_attention_backward(
                 qkv, bias, labels, ctx.window, ctx.scale, grad_out
             )

@@ -61,6 +61,10 @@ The JAX codec's options, with its defaults:
     shape, probe=None)`: `probe(name, tensor or None)` at each phase
     boundary, in the JAX codec's names and order, and `prefetch()` once a
     compress, where its device work is enqueued. Neither synchronises.
+
+While a torch profiler records, each call also keeps spans at those
+boundaries and inside them, and counters of its fused path's outcome and
+its lane framing bytes (`utils/tracing.py`); otherwise nothing is kept.
 """
 
 import collections
@@ -82,6 +86,7 @@ from ..entropy import (
     get_scale_table,
 )
 from ..layers import GDN
+from ..utils import tracing
 from ..utils.numerics import use_numerical_policy
 
 _HASH_MUL = 2654435761
@@ -531,6 +536,7 @@ class Codec:
 
     # -- compress ------------------------------------------------------------
 
+    @tracing.traced("encode", "upload")
     @torch.inference_mode()
     def compress(self, x, probe=None, prefetch=None) -> Dict[str, Any]:
         """x: (B, H, W, 3) uint8 or float in [0, 1]. Returns the strings,
@@ -557,49 +563,44 @@ class Codec:
             out = self._compress_fused(x, probe, prefetch)
             if out is not None:
                 return out
-            if probe is not None:
-                probe("fused_encode_fallback", None)
+            tracing.boundary(probe, "fused_encode_fallback", None, "upload")
         model = self.model
         x_dev = _as_tensor(x).to(self.device)
-        if probe is not None:
-            probe("upload", x_dev)
+        tracing.boundary(probe, "upload", x_dev, "analyze")
         y, z = self._analyze(self._normalize(x_dev))
-        if probe is not None:
-            probe("analyze", y)
+        tracing.boundary(probe, "analyze", y, "hyper")
         if self.fused_encode:
             self._check_latent(x.shape, y)
         z_sym, z_hat = _z_quantize_math(z, self._medians)
         latent_means, latent_scales = model.hyper_synthesize(
             z_hat, (y.shape[2], y.shape[3])
         )
-        if probe is not None:
-            probe("hyper", latent_scales)
+        tracing.boundary(probe, "hyper", latent_scales, "walk")
         symbols, indexes, banks, hashes = self._segment_walks(
             y, latent_means, latent_scales
         )
         if prefetch is not None:
             prefetch()
-        if probe is not None:
-            probe("walk", symbols[-1])
+        lane = self.coder == "lane"
+        tracing.boundary(probe, "walk", symbols[-1],
+                         "entropy" if lane else "drain")
         out = {
             "shape": (z.shape[2], z.shape[3]),
             "symbols": self._per_slice(symbols),
             "indexes": self._per_slice(indexes),
         }
-        if self.coder == "lane":
-            counts, hvec, _ = _split_meta(
-                _lane_meta(banks, hashes).cpu().numpy(), len(banks)
-            )
+        if lane:
+            with tracing.span("meta_fetch", "wait"):
+                meta = _lane_meta(banks, hashes).cpu().numpy()
+            counts, hvec, _ = _split_meta(meta, len(banks))
             blob, out["host_encoded"] = self._build_lane_stream(
                 counts, hvec, banks, symbols, indexes
             )
             y_strings = [blob]
-            if probe is not None:
-                probe("entropy", None)
+            tracing.boundary(probe, "entropy", None, "z_rans")
         else:
             drained = self._drain(symbols, indexes)
-            if probe is not None:
-                probe("drain", None)
+            tracing.boundary(probe, "drain", None, "rans")
             # per-image streams, slices 0..S-1 (the JAX host layout, the
             # same bytes at any pipeline)
             cdf, lengths, offsets = self.gc_coder.tables.astuple()
@@ -616,14 +617,13 @@ class Codec:
                         s[b], i[b], cdf, lengths, offsets,
                     )
             y_strings = [e.flush() for e in encoders]
-            if probe is not None:
-                probe("rans", None)
+            tracing.boundary(probe, "rans", None, "z_rans")
 
-        z_strings = self.eb_coder.compress_symbols(
-            z_sym.permute(0, 2, 3, 1).cpu().numpy()
-        )
-        if probe is not None:
-            probe("z_rans", None)
+        with tracing.span("z_fetch", "wait"):
+            z_np = z_sym.permute(0, 2, 3, 1).cpu().numpy()
+        with tracing.span("z_code", "host"):
+            z_strings = self.eb_coder.compress_symbols(z_np)
+        tracing.boundary(probe, "z_rans")
         out["strings"] = [y_strings, z_strings]
         return out
 
@@ -702,40 +702,53 @@ class Codec:
         segments: Dict = {}
         for (tg, wcap_rows, scap_rows), js in geometries.items():
             wb, sb = tail_rows(js, 0, tg), tail_rows(js, 1, scap_rows)
-            parts = [
-                torch.stack([
-                    banks[j][0].reshape(G, wcap_rows, K)[:, tg - wb:tg]
-                    for j in js
-                ]),
-                torch.stack([
-                    banks[j][1].reshape(G, scap_rows, K)[:, :sb]
-                    for j in js
-                ]),
-                torch.stack([banks[j][2] for j in js]),
-            ]
-            flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
-            w, s, st = (
-                a.reshape(p.shape) for a, p in zip(
-                    np.split(flat, np.cumsum([p.numel() for p in parts[:2]])),
-                    parts,
+            with tracing.span("tails_fetch", "wait"):
+                parts = [
+                    torch.stack([
+                        banks[j][0].reshape(G, wcap_rows, K)[:, tg - wb:tg]
+                        for j in js
+                    ]),
+                    torch.stack([
+                        banks[j][1].reshape(G, scap_rows, K)[:, :sb]
+                        for j in js
+                    ]),
+                    torch.stack([banks[j][2] for j in js]),
+                ]
+                flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+            with tracing.span("assemble", "host"):
+                w, s, st = (
+                    a.reshape(p.shape) for a, p in zip(
+                        np.split(flat,
+                                 np.cumsum([p.numel() for p in parts[:2]])),
+                        parts,
+                    )
                 )
-            )
-            for m, j in enumerate(js):
-                segments[j] = lc.assemble_from_tails(
-                    w[m], s[m], st[m], counts[j], numel(j)
-                )
+                for m, j in enumerate(js):
+                    segments[j] = lc.assemble_from_tails(
+                        w[m], s[m], st[m], counts[j], numel(j)
+                    )
 
         host = [j for j in range(S) if j not in segments]
-        for j in host:
-            segments[j] = lc.lane_encode(
-                symbols[j].cpu().numpy().reshape(-1),
-                indexes[j].cpu().numpy().reshape(-1), self.lane_tables,
+        if host:
+            with tracing.span("host_lane_encode", "host"):
+                for j in host:
+                    segments[j] = lc.lane_encode(
+                        symbols[j].cpu().numpy().reshape(-1),
+                        indexes[j].cpu().numpy().reshape(-1),
+                        self.lane_tables,
+                    )
+        with tracing.span("pack", "host"):
+            ordered = [segments[j] for j in range(S)]
+            blob = (
+                np.asarray([_LANE_HEADER_MAGIC | flags], "<u4").tobytes()
+                + hashes.astype("<u4").tobytes()
+                + lc.pack_lane_stream(ordered)
             )
-        blob = (
-            np.asarray([_LANE_HEADER_MAGIC | flags], "<u4").tobytes()
-            + hashes.astype("<u4").tobytes()
-            + lc.pack_lane_stream([segments[j] for j in range(S)])
-        )
+        call = tracing.current()
+        if call is not None:
+            # the header word and the index hashes, then the lane format's
+            # own framing
+            call.framing_bytes = 4 + 4 * S + lc.framing_bytes(ordered)
         return blob, len(host)
 
     # -- fused encode tiers ---------------------------------------------------
@@ -824,6 +837,7 @@ class Codec:
         self-check failed: the caller then runs the per-slice compress.
         A capture or launch failure raises."""
         if not self._fused_fits(x.shape):
+            tracing.outcome("size_guard")
             return None
         model, mode = self.model, self._fused_mode
         x = _as_tensor(x)
@@ -838,6 +852,7 @@ class Codec:
             inputs = (y, lm, ls, _z_tail(z_sym))
         key = (mode, tuple(x.shape), x.dtype)
         if self.device.type == "cpu":
+            tracing.outcome("eager")
             meta, banks, symbols, indexes, z_out = self._fused_encode_walk(
                 mode, inputs
             )
@@ -853,8 +868,9 @@ class Codec:
                              non_blocking=True)
             if mode == "full":
                 x_dev = statics[0]
-            for graph in graphs:
-                graph.replay()
+            with tracing.span("replay", "launch"):
+                for graph in graphs:
+                    graph.replay()
             _native.launch_counts.update(launched)
             meta, banks, symbols, indexes, z_out = out
             # the next replay overwrites the graph's outputs
@@ -862,42 +878,48 @@ class Codec:
             indexes = [i.clone() for i in indexes]
         if prefetch is not None:
             prefetch()
-        if probe is not None:
-            probe("upload", x_dev)
+        tracing.boundary(probe, "upload", x_dev, "fused_encode_walk")
         if mode == "full":
             z_sym = z_out
-        counts, hashes, z_tail = _split_meta(meta.cpu().numpy(), len(banks))
-        if probe is not None:
-            probe("fused_encode_walk", None)
+        with tracing.span("meta_fetch", "wait"):
+            meta = meta.cpu().numpy()
+        counts, hashes, z_tail = _split_meta(meta, len(banks))
+        tracing.boundary(probe, "fused_encode_walk", None, "entropy")
         try:
             blob, _ = self._build_lane_stream(
                 counts, hashes, banks, symbols, indexes,
                 flags=_LANE_FLAG_FUSED_ENC,
             )
         except _LaneSideOverflow:
+            tracing.outcome("side_overflow")
             return None
-        if probe is not None:
-            probe("entropy", None)
+        tracing.boundary(probe, "entropy", None, "z_rans")
         B, _, zh, zw = z_sym.shape
         if z_tail[0]:  # a z symbol left int8: fetch the int32 copy
-            z_np = z_sym.permute(0, 2, 3, 1).cpu().numpy()
+            with tracing.span("z_fetch", "wait"):
+                z_np = z_sym.permute(0, 2, 3, 1).cpu().numpy()
         else:
             z_np = z_tail[1:].view(np.int8)[:z_sym.numel()].reshape(B, zh, zw, -1)
+        with tracing.span("z_code", "host"):
+            z_strings = self.eb_coder.compress_symbols(z_np)
         out = {
-            "strings": [[blob], self.eb_coder.compress_symbols(z_np)],
+            "strings": [[blob], z_strings],
             "shape": (zh, zw),
             "symbols": self._per_slice(symbols),
             "indexes": self._per_slice(indexes),
             "host_encoded": 0,
         }
-        if probe is not None:
-            probe("z_rans", None)
-        if key not in self._enc_verified:
+        verify = key not in self._enc_verified
+        tracing.boundary(probe, "z_rans", None,
+                         "fused_verify" if verify else "tail")
+        if verify:
             # the first stream of a configuration must decode before it
             # leaves: its indexes come from a graph no decoder replays
             try:
-                self.decompress(out["strings"], out["shape"])
+                with tracing.span("self_check", "stage"):
+                    self.decompress(out["strings"], out["shape"])
             except (ValueError, IndexError, KeyError, struct.error):
+                tracing.outcome("demoted")
                 if mode == "full":
                     warnings.warn(
                         "fused encode self-check FAILED: no decoder derives "
@@ -916,8 +938,7 @@ class Codec:
                 self.fused_encode = False
                 return None
             self._enc_verified.add(key)
-            if probe is not None:
-                probe("fused_verify", None)
+            tracing.boundary(probe, "fused_verify")
         return out
 
     def _cached_graph(self, graphs, key, capture):
@@ -925,6 +946,7 @@ class Codec:
         most recently used; the least recently used past `_GRAPH_CACHE`
         goes."""
         entry = graphs.pop(key, None)
+        tracing.outcome("replay" if entry is not None else "capture")
         if entry is None:
             entry = capture()
         graphs[key] = entry
@@ -1090,57 +1112,60 @@ class Codec:
         caches) and captures it; every call replays on a buffer sized for
         the geometry. On CPU tensors it runs eagerly through the kernels'
         plain versions."""
-        wr = _bucket(max(
-            lc.words_rows_for(s.word_counts.max()) for s in segments
-        ))
-        sr = _bucket(max(
-            lc.side_rows_for(s.side_counts.max()) for s in segments
-        ))
-        flat, boffs = lc.flat_banks(segments, wr, sr)
-        z_is_sym = bool(z_sym.min() >= -128 and z_sym.max() <= 127)
-        if z_is_sym:
-            zb = np.zeros((z_sym.size + 3) // 4 * 4, np.int8)
-            zb[: z_sym.size] = z_sym.reshape(-1)
-            z_i32 = zb.view("<i4")
-        else:
-            z_i32 = (z_sym.astype(np.float32) + self.eb_coder.medians)
-            z_i32 = z_i32.reshape(-1).view(np.int32)
-        hdr = boffs.size + z_i32.size
-        buf = np.concatenate([
-            (boffs.reshape(-1) + hdr).astype(np.int32), z_i32, flat
-        ])
-        if probe is not None:
-            probe("banks_pack", None)
+        with tracing.span("banks_pack", "host"):
+            wr = _bucket(max(
+                lc.words_rows_for(s.word_counts.max()) for s in segments
+            ))
+            sr = _bucket(max(
+                lc.side_rows_for(s.side_counts.max()) for s in segments
+            ))
+            flat, boffs = lc.flat_banks(segments, wr, sr)
+            z_is_sym = bool(z_sym.min() >= -128 and z_sym.max() <= 127)
+            if z_is_sym:
+                zb = np.zeros((z_sym.size + 3) // 4 * 4, np.int8)
+                zb[: z_sym.size] = z_sym.reshape(-1)
+                z_i32 = zb.view("<i4")
+            else:
+                z_i32 = (z_sym.astype(np.float32) + self.eb_coder.medians)
+                z_i32 = z_i32.reshape(-1).view(np.int32)
+            hdr = boffs.size + z_i32.size
+            buf = np.concatenate([
+                (boffs.reshape(-1) + hdr).astype(np.int32), z_i32, flat
+            ])
+        tracing.boundary(probe, "banks_pack", None, "banks_upload")
         key = (
             y_shape, wr, sr, tuple(s.n for s in segments), z_sym.shape,
             z_is_sym, tuple(subs), self.synth_chunks,
         )
 
         if self.device.type == "cpu":
+            tracing.outcome("eager")
             buf_dev = torch.from_numpy(buf)
-            if probe is not None:
-                probe("banks_upload", buf_dev)
+            tracing.boundary(probe, "banks_upload", buf_dev, "fused_walk_synth")
             y_hats, hvec, symbols = self._fused_walk(key, buf_dev)
             x_hat = self._synthesize(y_hats)
         else:
             graphs, static_buf, out, launched = self._cached_graph(
                 self._graphs, key, lambda: self._capture(key, buf)
             )
-            staged = torch.from_numpy(buf).pin_memory()
-            static_buf[: buf.size].copy_(staged, non_blocking=True)
-            if probe is not None:
-                probe("banks_upload", static_buf)
-            for graph in graphs:
-                graph.replay()
+            with tracing.span("upload", "host"):
+                staged = torch.from_numpy(buf).pin_memory()
+                static_buf[: buf.size].copy_(staged, non_blocking=True)
+            tracing.boundary(probe, "banks_upload", static_buf,
+                             "fused_walk_synth")
+            with tracing.span("replay", "launch"):
+                for graph in graphs:
+                    graph.replay()
             _native.launch_counts.update(launched)
             # the next replay overwrites the graph's outputs
             x_hat, hvec = out[0].clone(), out[1].clone()
             symbols = [s.clone() for s in out[2]]
-        got = hvec.cpu().numpy()
+        with tracing.span("hash_fetch", "wait"):
+            got = hvec.cpu().numpy()
         if np.array_equal(got, enc_hashes):
-            if probe is not None:
-                probe("fused_walk_synth", x_hat)
+            tracing.boundary(probe, "fused_walk_synth", x_hat)
             return {"x_hat": x_hat, "symbols": symbols}
+        tracing.outcome("hash_fallback")
         P = len(subs)
         bad = [(int(j) // P, int(j) % P)
                for j in np.flatnonzero(got != enc_hashes)]
@@ -1184,6 +1209,7 @@ class Codec:
             graphs, out, launched = self._capture_graph(walk, synth)
         return graphs, static_buf, out, launched
 
+    @tracing.traced("decode", "z_host_rans")
     @torch.inference_mode()
     def decompress(self, strings: Sequence, shape, probe=None) -> Dict[str, Any]:
         """Returns the NHWC x_hat in [0, 1] and the per-slice NHWC int32
@@ -1194,22 +1220,24 @@ class Codec:
         per-slice walk."""
         model = self.model
         y_strings, z_strings = strings[0], strings[1]
-        z_sym = self.eb_coder.decompress_symbols(z_strings, shape)
-        if probe is not None:
-            probe("z_host_rans", None)
+        with tracing.span("z_code", "host"):
+            z_sym = self.eb_coder.decompress_symbols(z_strings, shape)
+        lane = self.coder == "lane"
+        tracing.boundary(probe, "z_host_rans", None,
+                         "y_unpack" if lane else "z_decode")
         B = z_sym.shape[0]
         S = model.num_slices
         subs = self._sub_batches(B)
         up = model.hyper_upsample
         y_shape = (shape[0] * up, shape[1] * up)
 
-        lane = self.coder == "lane"
         if lane:
-            flags, enc_hashes, segments = self._lane_segments(
-                y_strings[0] if len(y_strings) else b"", S * len(subs)
-            )
-            if probe is not None:
-                probe("y_unpack", None)
+            with tracing.span("unpack", "host"):
+                flags, enc_hashes, segments = self._lane_segments(
+                    y_strings[0] if len(y_strings) else b"", S * len(subs)
+                )
+            tracing.boundary(probe, "y_unpack", None,
+                             "banks_pack" if self.fused else "z_decode")
             if self.fused:
                 out = self._fused_decompress(
                     z_sym, y_shape, subs, segments, enc_hashes, probe
@@ -1237,15 +1265,15 @@ class Codec:
         z_hat = self._z_dequantize(z_dev).clone(
             memory_format=torch.contiguous_format
         )
-        if probe is not None:
-            probe("z_decode", z_hat)
+        tracing.boundary(probe, "z_decode", z_hat)
         latent_means, latent_scales = model.hyper_synthesize(z_hat, y_shape)
         if lane:
             y_hats, dec_hashes, decoded = self._lane_walks(
                 latent_means, latent_scales, subs, banks,
                 [seg.n for seg in segments],
             )
-            got = torch.stack(dec_hashes).cpu().numpy()
+            with tracing.span("hash_fetch", "wait"):
+                got = torch.stack(dec_hashes).cpu().numpy()
             if not np.array_equal(got, enc_hashes):
                 if flags & _LANE_FLAG_FUSED_ENC and not self.fused:
                     # a fused encode tier derived this stream's indexes;

@@ -814,6 +814,40 @@ def test_consecutive_fused_compresses_are_independent(dev):
             assert torch.equal(a, b)
 
 
+def test_fused_outcomes_are_capture_then_replay(dev):
+    """While a profiler records, the first full-tier compress of a shape
+    records "capture" (its self-check's decode graph captured inside it)
+    and the second "replay"; a decoder codec's first fused decompress of
+    the stream records "capture", its second "replay"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.utils import tracing
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model("cnn", seed=0)
+    codec = Codec(model, coder="lane", device=dev, fused_encode=True)
+    decoder = Codec(model, coder="lane", device=dev)
+    old = tracing.calls()
+    last = old[-1].id if old else -1
+    with profile(activities=[ProfilerActivity.CPU]):
+        encs = [codec.compress(_pattern(64, 64)) for _ in range(2)]
+        for _ in range(2):
+            decoder.decompress(encs[1]["strings"], encs[1]["shape"])
+    calls = [c for c in tracing.calls() if c.id > last]
+    assert [(c.phase, c.outcome) for c in calls] == [
+        ("encode", "capture"), ("encode", "replay"),
+        ("decode", "capture"), ("decode", "replay")]
+    assert [s.name for s in calls[0].spans].count("self_check") == 1
+    assert "self_check" not in [s.name for s in calls[1].spans]
+    assert [(s.kind, s.name) for s in calls[1].spans if s.kind != "stage"] == [
+        ("launch", "replay"), ("wait", "meta_fetch"), ("wait", "tails_fetch"),
+        ("host", "assemble"), ("host", "pack"), ("host", "z_code")]
+    assert [(s.kind, s.name) for s in calls[3].spans if s.kind != "stage"] == [
+        ("host", "z_code"), ("host", "unpack"), ("host", "banks_pack"),
+        ("host", "upload"), ("launch", "replay"), ("wait", "hash_fetch")]
+
+
 def test_encode_and_decode_graphs_share_one_pool_and_stay_bounded(dev):
     """Full-tier compresses at six geometries: each captures an encode
     graph and, in its self-check, a decode graph, all in the codec's one

@@ -11,8 +11,15 @@ pipeline; the packed drain (12 bits a symbol) writes the same streams as
 the int8 drain. Floats: cross-decoded x_hat within 1e-4 (the frameworks'
 CPU convolutions sum in other orders), and a chunked synthesis's x_hat
 within 1e-5 of the unchunked one.
+
+The probe's boundaries also cut each call into spans while a torch
+profiler records (`stf_tpu_torch.utils.tracing`): their nesting, names,
+profiler ranges and counters are held here, and that nothing is kept or
+entered without a profiler.
 """
 
+import contextlib
+import json
 import warnings
 
 import numpy as np
@@ -25,6 +32,7 @@ from stf_tpu.models import Codec as JaxCodec
 from stf_tpu.models.codec import _unpack12 as jax_unpack12
 from stf_tpu_torch.models import Codec
 from stf_tpu_torch.models import codec as codec_mod
+from stf_tpu_torch.utils import tracing
 
 WIDE_TABLE = np.exp(np.linspace(np.log(0.11), np.log(256.0), 128)).astype(
     np.float32
@@ -339,3 +347,183 @@ def test_prefetch_fires_once_across_the_fused_fallback(setup, monkeypatch):
     assert not _y(enc)[0] & 1  # the per-slice stream
     assert "fused_encode_fallback" in marks
     assert marks.index("fused_encode_fallback") < marks.index("analyze")
+
+
+# -- spans and counters ---------------------------------------------------------
+
+@contextlib.contextmanager
+def _recording():
+    """A CPU-only torch profiler around the block; yields the list that
+    receives the records of the codec calls made inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    old = tracing.calls()
+    last = old[-1].id if old else -1
+    got = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        yield got, prof
+    got += [c for c in tracing.calls() if c.id > last]
+
+
+def _check_nesting(call):
+    """Every child span lies inside its parent, and the top-level spans of
+    the call's own phase follow one another; returns their names."""
+    top = []
+    for s in call.spans:
+        assert s.t0 <= s.t1
+        if s.parent is None:
+            if top:
+                assert top[-1].t1 <= s.t0
+            top.append(s)
+        else:
+            parent = call.spans[s.parent]
+            assert parent.t0 <= s.t0 and s.t1 <= parent.t1, (s.name, parent.name)
+    assert all(s.phase == call.phase and s.kind == "stage" for s in top)
+    return [s.name for s in top]
+
+
+@pytest.mark.parametrize("tier", [False, True], ids=["per_slice", "full"])
+def test_spans_nest_and_take_the_probes_names(setup, tier):
+    """A pipeline-2 lane compress (per-slice, or the full tier's first call
+    with its self-check decompress inside) and its fused decompress: the
+    top-level spans are the probe's names in its order, then "tail", with
+    a probe and without; the self-check's spans lie inside self_check."""
+    names = []
+    for with_probe in (True, False):
+        codec = Codec(setup["port"], coder="lane", device="cpu", pipeline=2,
+                      fused_encode=tier)
+        probe, marks = _marks() if with_probe else (None, None)
+        dprobe, dmarks = _marks() if with_probe else (None, None)
+        with _recording() as (calls, _):
+            enc = codec.compress(setup["x"], probe=probe)
+            codec.decompress(enc["strings"], enc["shape"], probe=dprobe)
+        assert [c.phase for c in calls] == ["encode", "decode"]
+        got = [_check_nesting(c) for c in calls]
+        if with_probe:
+            assert got == [marks + ["tail"], dmarks + ["tail"]]
+        names.append(got)
+        inner = [s for s in calls[0].spans if s.phase == "decode"]
+        assert bool(inner) == tier
+        if tier:
+            check = [i for i, s in enumerate(calls[0].spans)
+                     if s.name == "self_check"]
+            assert len(check) == 1
+            assert {s.parent for s in inner if s.kind == "stage"} == set(check)
+    assert names[0] == names[1]
+
+
+def test_no_profiler_keeps_nothing_and_enters_no_range(setup, monkeypatch):
+    """Without a profiler a compress and decompress (full tier, first call
+    and self-check included) build no record, enter no profiler range and
+    keep nothing in the ring."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("entered while no profiler records")
+
+    before = tracing.calls()
+    monkeypatch.setattr(tracing, "Call", refuse)
+    monkeypatch.setattr(tracing, "Span", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    codec = Codec(setup["port"], coder="lane", device="cpu", pipeline=2,
+                  fused_encode=True)
+    probe, marks = _marks()
+    enc = codec.compress(setup["x"], probe=probe)
+    codec.decompress(enc["strings"], enc["shape"])
+    assert marks == setup["marks"]["fused2"] + ["fused_verify"]
+    assert tracing.calls() == before
+
+
+def test_profiler_ranges_are_the_spans_inside_the_callers_range(setup,
+                                                                tmp_path):
+    """Under a CPU-only profiler the exported trace holds one range
+    "stf_tpu_torch.<phase>.<span>" a span, each inside the caller's own
+    range and inside its parent span's range."""
+    from torch.autograd.profiler import record_function
+
+    lane2, enc = setup["port_lane2"]
+    with _recording() as (calls, prof):
+        with record_function("caller"):
+            lane2.compress(setup["x"])
+            lane2.decompress(enc["strings"], enc["shape"])
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    caller = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e["name"] == "caller"]
+    ranges = sorted((e["ts"], -e["dur"], e["name"]) for e in events
+                    if e["name"].startswith("stf_tpu_torch."))
+    spans = sorted(((s.t0, -(s.t1 - s.t0)), f"stf_tpu_torch.{s.phase}.{s.name}",
+                    c.id, i) for c in calls for i, s in enumerate(c.spans))
+    assert len(caller) == 1 and len(calls) == 2
+    assert [r[2] for r in ranges] == [s[1] for s in spans]
+    assert not any(e["name"].startswith("codecbench.") for e in events)
+    (a, b) = caller[0]
+    assert all(a <= t0 and t0 - d <= b for t0, d, _ in ranges)
+    # ranges open in the spans' order, so a span's parent's range is the
+    # range of its parent's position
+    at = {(cid, i): k for k, (_, _, cid, i) in enumerate(spans)}
+    for c in calls:
+        for i, s in enumerate(c.spans):
+            if s.parent is not None:
+                t0, d, _ = ranges[at[(c.id, i)]]
+                p0, pd, _ = ranges[at[(c.id, s.parent)]]
+                assert p0 <= t0 and t0 - d <= p0 - pd
+
+
+def test_framing_bytes_of_a_pipeline2_stream(setup):
+    """2 images at pipeline 2: 8 segments. The framing is the header word,
+    8 index hashes, the lane format's fixed bytes for 8 segments and 2
+    bytes for each segment of an odd word count; the record keeps the
+    stream's y and z bytes, its images and the eager outcome."""
+    lane2, _ = setup["port_lane2"]
+    with _recording() as (calls, _):
+        enc = lane2.compress(setup["x"])
+    blob = _y(enc)
+    odd = sum(int(s.word_counts.sum()) & 1
+              for s in codec_mod.lc.unpack_lane_stream(blob[4 + 4 * 8:]))
+    (call,) = calls
+    assert call.framing_bytes == (codec_mod.lc.fixed_overhead_bytes(8) + 4
+                                  + 32 + 2 * odd)
+    assert call.y_bytes == len(blob)
+    assert call.z_bytes == sum(len(s) for s in enc["strings"][1])
+    assert call.images == 2 and call.outcome is None  # no fused encode tier
+    with _recording() as (calls, _):
+        lane2.decompress(enc["strings"], enc["shape"])
+    assert [c.outcome for c in calls] == ["eager"]
+
+
+@pytest.mark.parametrize("outcome", ["size_guard", "side_overflow", "demoted"])
+def test_fused_outcomes_are_recorded(setup, monkeypatch, outcome):
+    """The size guard (a limit of 0 symbols a slice), a planted side-channel
+    overflow in the tier's walk, and a self-check that fails (the split
+    tier, then disabled): each call's record holds that outcome and the
+    per-slice stream the call returned."""
+    codec = Codec(setup["port"], coder="lane", device="cpu",
+                  fused_encode="split")
+    if outcome == "size_guard":
+        monkeypatch.setattr(codec_mod, "_FUSED_ENC_MAX_SLICE", 0)
+    elif outcome == "side_overflow":
+        real = codec._build_lane_stream
+
+        def overflow_fused_only(*args, flags=0):
+            if flags & codec_mod._LANE_FLAG_FUSED_ENC:
+                raise codec_mod._LaneSideOverflow("planted")
+            return real(*args, flags=flags)
+
+        monkeypatch.setattr(codec, "_build_lane_stream", overflow_fused_only)
+    else:
+        def failing(strings, shape):
+            raise ValueError("index hash mismatch (planted)")
+
+        monkeypatch.setattr(codec, "decompress", failing)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with _recording() as (calls, _):
+            enc = codec.compress(setup["x"])
+    (call,) = calls
+    assert call.outcome == outcome
+    assert not _y(enc)[0] & 1
+    assert [s.name for s in call.spans if s.parent is None][-2:] == [
+        "z_rans", "tail"]
+    assert call.framing_bytes > codec_mod.lc.fixed_overhead_bytes(4)
