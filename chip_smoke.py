@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card, its power limit, and the torch / CUDA versions;
-  2. build the four CUDA kernels (nvcc, sm_90a) and the rANS library from
+  2. build the five CUDA libraries (nvcc, sm_90a) and the rANS library from
      the sources in this checkout, all compilers started at once;
   3. kernel B1 (window attention) against its plain PyTorch version at
      WACNN's two attention geometries, STF's four stage geometries
@@ -39,6 +39,16 @@ Phases (any failure exits non-zero; nothing is caught):
      cropped lm view (the general path), and odd uint8, bf16, stride-0
      and misaligned views: bytes equal to the plain version's, the path
      the planner picks; the first five timed beside PyTorch's copy;
+  6b. the 3xTF32 convolution (`phase_conv`, `layers/conv_core.py`) at
+     the main path's shapes (CONV_SHAPES: the cells' slice stacks, hyper
+     synthesis, WACNN's synthesis units and STF's end_conv at batch 24,
+     two slice layers at batch 1): its largest error against an f64
+     convolution no more than 4x cuDNN f32's (TF32 off), two launches
+     bit-equal, every tile configuration and each image alone bit-equal
+     to the batch's outputs; timed over graph replays under the table's
+     configuration and every other, beside the plain version and cuDNN's
+     F.conv2d, with the bound (2 M N K at 165 TFLOP/s, the tensor cores'
+     495 TF32 over three products, or the bytes at 3.35 TB/s);
   7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
      uint8 images with coder="lane" (y encoded by B3; fused and per-slice
@@ -184,6 +194,30 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 ATTN_TOL = 1e-5
+TF32X3_OPS_PER_S = 495e12 / 3  # the tensor cores' TF32 rate, 3 products
+# the 3xTF32 convolution's main-path shapes: (label, C_in, C_out, k, H, W,
+# batch); the first of each kernel size a kernels row, by the path that
+# launches it most (the batch-1 one on the single cells' paths)
+CONV_SHAPES = (
+    ("slice 480->224 at 32x48", 480, 224, 3, 32, 48, 24),
+    ("slice 224->176", 224, 176, 3, 32, 48, 24),
+    ("slice 176->128", 176, 128, 3, 32, 48, 24),
+    ("slice 128->64", 128, 64, 3, 32, 48, 24),
+    ("slice 64->32", 64, 32, 3, 32, 48, 24),
+    ("hyper 256->1152 at 16x24", 256, 1152, 3, 16, 24, 24),
+    ("hyper 288->320 at 32x48", 288, 320, 3, 32, 48, 24),
+    ("g_s unit 320->160 at 32x48", 320, 160, 1, 32, 48, 24),
+    ("g_s unit 160->160 at 32x48", 160, 160, 3, 32, 48, 24),
+    ("hyper 224->256 at 16x24", 224, 256, 3, 16, 24, 24),
+    ("hyper 192->192 at 8x12", 192, 192, 3, 8, 12, 24),
+    ("g_s unit 192->96 at 128x192", 192, 96, 1, 128, 192, 24),
+    ("g_s unit 96->96 at 128x192", 96, 96, 3, 128, 192, 24),
+    ("end_conv 48->192 at 256x384", 48, 192, 5, 256, 384, 24),
+    ("end_conv 48->3 at 512x768", 48, 3, 3, 512, 768, 24),
+    ("batch 1: slice 480->224", 480, 224, 3, 32, 48, 1),
+    ("batch 1: slice 224->176", 224, 176, 3, 32, 48, 1),
+)
+CONV_TOL = 4  # the kernel's f64 error over cuDNN f32's, at most
 # (model, feature map, channels, window, heads) of every attention geometry
 # at a 512x768 input: WACNN's g_a/g_s blocks, STF's four Swin stages (head
 # width 16 throughout; DYSTF's are the same), TBC's four analysis and
@@ -1018,6 +1052,93 @@ def phase_layout_pin(dev):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             ))
     print(f"B4 layout_pin: {len(cases)} views bit-exact, each on its path")
+    return rows
+
+
+def conv_f64_errors(x, w, b):
+    """(kernel, cuDNN f32) largest absolute error against an f64
+    convolution, on the first two images of x."""
+    import torch.nn.functional as F
+
+    from stf_tpu_torch.layers import conv_core
+
+    x = x[:2]
+    pad = w.shape[-1] // 2
+    want = F.conv2d(x.double(), w.double(), b.double(), padding=pad)
+    got = conv_core.conv2d_tc(x, w, b)
+    lib = F.conv2d(x, w, b, padding=pad)
+    return ((got.double() - want).abs().max().item(),
+            (lib.double() - want).abs().max().item())
+
+
+def phase_conv(dev):
+    """The 3xTF32 convolution at CONV_SHAPES (module docstring, 6b): checks
+    first, then times; returns its kernels rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_tpu_torch.layers import conv_core
+    from stf_tpu_torch.utils.numerics import use_numerical_policy
+
+    use_numerical_policy()  # cuDNN as the codec runs it: the yardstick
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, seen = [], set()
+    for label, ci, co, k, h, w, batch in CONV_SHAPES:
+        x = torch.randn(batch, ci, h, w, device=dev, generator=gen)
+        wt = torch.randn(co, ci, k, k, device=dev, generator=gen) / (
+            ci * k * k) ** 0.5
+        b = torch.randn(co, device=dev, generator=gen)
+        err, lib_err = conv_f64_errors(x, wt, b)
+        wp = conv_core.pack_weight(wt)
+        if not torch.equal(wp, conv_core.pack_weight_plain(wt)):
+            raise AssertionError(f"conv_tc {label}: packed weights differ")
+        y = conv_core.conv2d_tc(x, wt, b, packed=wp)
+        if err > CONV_TOL * lib_err or not torch.equal(
+                y, conv_core.conv2d_tc(x, wt, b)):
+            raise AssertionError(f"conv_tc {label}: f64 error {err:.3g} "
+                                 f"(cuDNN f32 {lib_err:.3g}) or launches differ")
+        for i in (0, batch - 1):
+            if not torch.equal(conv_core.conv2d_tc(x[i:i + 1], wt, b),
+                               y[i:i + 1]):
+                raise AssertionError(f"conv_tc {label}: image {i} alone differs")
+        M = batch * h * w
+        split = conv_core.splits(ci, k)
+        chosen = conv_core.tile_config(M, co, split, sms)
+        times = {}
+        for c in range(len(conv_core.CONFIGS)):
+            if not torch.equal(conv_core.conv2d_tc(x, wt, b, config=c,
+                                                   packed=wp), y):
+                raise AssertionError(f"conv_tc {label}: configuration {c} differs")
+            times[c] = graph_ms(lambda c=c: conv_core.conv2d_tc(
+                x, wt, b, config=c, packed=wp), 5, 3)
+        ms = times[chosen]
+        eager_ms = cuda_ms(lambda: conv_core.conv2d_tc(x, wt, b, packed=wp), 10)
+        pack_ms = graph_ms(lambda: conv_core.pack_weight(wt), 20, 3)
+        lib_ms = graph_ms(lambda: F.conv2d(x, wt, b, padding=k // 2), 5, 3)
+        plain_ms = graph_ms(lambda: conv_core.conv2d_tc_plain(x, wt, b), 3, 2)
+        flops = 2 * M * co * ci * k * k
+        nbytes = 4 * (x.numel() + wt.numel() + b.numel() + M * co)
+        bound_ms, bound_by = bound(nbytes, flops, TF32X3_OPS_PER_S)
+        print(f"conv_tc {label} batch {batch} (M {M}, N {co}, K {ci * k * k}, "
+              f"split {split}): kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} "
+              f"TFLOP/s (eager per call {eager_ms:.4f} ms; weight packing "
+              f"{pack_ms:.4f} ms), configuration {chosen} of "
+              + ", ".join(f"{c}: {t:.4f}" for c, t in times.items())
+              + f"; cuDNN F.conv2d {lib_ms:.4f} ms = {flops / lib_ms / 1e9:.1f} "
+              f"TFLOP/s ({lib_ms / ms:.2f}x); plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%); "
+              f"f64 error {err:.3g} (cuDNN f32 {lib_err:.3g})")
+        key = (k, batch == 1)
+        if key not in seen:
+            seen.add(key)
+            rows.append(dict(
+                name=conv_core.launch_key(k), route="cuda",
+                source="stf_tpu_torch/csrc/conv_tc.cu", replaces=None,
+                shape=f"{label} batch {batch}", launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms,
+                path="stf" if k == 5 else "cnn"))
     return rows
 
 
@@ -3066,7 +3187,8 @@ def main():
             + phase("attention_bf16", phase_attention_bf16, dev, sm_mhz)
             + phase("lane_decode", phase_lane_decode, dev, sm_mhz)
             + phase("lane_encode", phase_lane_encode, dev, sm_mhz)
-            + phase("layout_pin", phase_layout_pin, dev))
+            + phase("layout_pin", phase_layout_pin, dev)
+            + phase("conv", phase_conv, dev))
     launches = {name: phase(f"codec {name}", phase_codec, dev, smi, name)
                 for name in CODEC_MODELS}
     phase("stf_seed_fallback", phase_stf_seed_fallback, dev)

@@ -1,26 +1,29 @@
 """Build and load the port's native libraries, and count kernel launches.
 
-Five shared libraries with plain C interfaces, loaded with ctypes:
+Six shared libraries with plain C interfaces, loaded with ctypes:
 
   * ``librans``        ``ans/csrc/rans_coder.cpp`` (host rANS + lane
                        encoder), built with ``g++``;
   * ``libwinattn``     ``csrc/window_attention.cu`` (kernel B1);
   * ``liblanedecode``  ``csrc/lane_decode.cu`` (kernel B2);
   * ``liblaneencode``  ``csrc/lane_encode.cu`` (kernel B3);
-  * ``liblayoutpin``   ``csrc/layout_pin.cu`` (kernel B4); the four CUDA
-                       libraries built with ``nvcc`` for ``sm_90a``.
+  * ``liblayoutpin``   ``csrc/layout_pin.cu`` (kernel B4);
+  * ``libconvtc``      ``csrc/conv_tc.cu`` (the 3xTF32 convolution); the
+                       five CUDA libraries built with ``nvcc`` for
+                       ``sm_90a``.
 
 Each builds at first use into ``stf_tpu_torch/build/`` (gitignored) and is
 rebuilt when its source is newer than the binary. `build_all` starts every
 compiler at once, so the CUDA builds cost one ``nvcc`` wall time. The rANS
 library builds when ``stf_tpu_torch.ans`` is first imported; the CUDA
-libraries only when a wrapper is about to launch on a CUDA tensor.
+libraries, all of them, when a wrapper is first about to launch on a CUDA
+tensor.
 
 `launch_counts` holds one integer per kernel (and per shape for B1, per
-path for B4): each wrapper adds one where it launches its kernel, and
-nowhere else. `build_logs` keeps each compiler's output; the CUDA builds
-pass ``-Xptxas -v``, so it lists every kernel's registers, shared memory
-and spills.
+path for B4, per kernel size for the convolution): each wrapper adds one
+where it launches its kernel, and nowhere else. `build_logs` keeps each
+compiler's output; the CUDA builds pass ``-Xptxas -v``, so it lists every
+kernel's registers, shared memory and spills.
 """
 
 import collections
@@ -39,8 +42,9 @@ _SOURCES = {
     "lanedecode": os.path.join(_PKG_DIR, "csrc", "lane_decode.cu"),
     "laneencode": os.path.join(_PKG_DIR, "csrc", "lane_encode.cu"),
     "layoutpin": os.path.join(_PKG_DIR, "csrc", "layout_pin.cu"),
+    "convtc": os.path.join(_PKG_DIR, "csrc", "conv_tc.cu"),
 }
-CUDA_LIBS = ("winattn", "lanedecode", "laneencode", "layoutpin")
+CUDA_LIBS = ("winattn", "lanedecode", "laneencode", "layoutpin", "convtc")
 
 launch_counts = collections.Counter()
 build_logs = {}  # name -> the compiler's output of its last build here
@@ -114,10 +118,14 @@ def declare(name: str, fn) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The named library, built if needed and loaded once per process."""
+    """The named library, built if needed and loaded once per process. A
+    CUDA library's build also builds every other stale CUDA library, all
+    compilers at once, so a fresh checkout pays one ``nvcc`` wall time
+    whichever kernel it launches first."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_all([name])[name])
+        lib = ctypes.CDLL(build_all(CUDA_LIBS if name in CUDA_LIBS
+                                    else [name])[name])
         _declarations[name](lib)
         _loaded[name] = lib
     return lib

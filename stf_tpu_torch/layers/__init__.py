@@ -1,5 +1,5 @@
 from .attention_core import window_attention, window_attention_plain
-from .conv import conv, conv1x1, conv3x3, deconv, gelu, subpel_conv3x3
+from .conv import Conv2d, conv, conv1x1, conv3x3, deconv, gelu, subpel_conv3x3
 from .gdn import GDN
 from .swin import (
     BasicLayer,
@@ -25,6 +25,7 @@ from .win_attention import (
 
 __all__ = [
     "BasicLayer",
+    "Conv2d",
     "DropPath",
     "GDN",
     "MergeFirstLayer",

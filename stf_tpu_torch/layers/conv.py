@@ -4,16 +4,65 @@ The port runs its transforms NCHW with the reference's own torch layers:
 ``nn.Conv2d`` with ``padding = k//2`` and ``nn.ConvTranspose2d`` with
 ``padding = k//2, output_padding = stride - 1`` (exact 2x upsampling), the
 layout the JAX package emulates with explicit padding
-(`compressai/models/utils.py:114-132`, `layers/layers.py:29-43`).
+(`compressai/models/utils.py:114-132`, `layers/layers.py:29-43`). Its
+convolutions are `Conv2d`, an ``nn.Conv2d`` whose f32 stride-1 calls on
+the card outside autograd launch the 3xTF32 kernel (`conv_core`).
 """
 
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import tracing
+from . import conv_core
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state_dict keys) whose
+    forward launches the 3xTF32 kernel (`conv_core.conv2d_tc`) where
+    `conv_core.routes` holds, and ``F.conv2d`` otherwise: CPU tensors,
+    bf16, strided convolutions, every call under autograd. It keeps the
+    kernel's packing of its weight (`_packed`: twice the weight's bytes,
+    C_in padded to a multiple of 8). While a codec call records
+    (`utils.tracing`), each call adds its FLOPs to the record under its
+    route."""
+
+    def _packed(self):
+        """`conv_core.pack_weight(self.weight)`, kept while the weight keeps
+        its storage and version (an in-place update, a load or a move makes
+        a new one). The packing holds the weight's old storage, so that no
+        new weight can take its address."""
+        w = self.weight
+        key = (w.device, w.data_ptr(), w._version)
+        kept = getattr(self, "_tc_packing", None)
+        if kept is None or kept[0] != key:
+            kept = (key, w.detach(), conv_core.pack_weight(w))
+            self._tc_packing = kept
+        return kept[2]
+
+    def launches(self, x) -> bool:
+        """Whether `forward(x)` launches the kernel (`conv_core.routes`)."""
+        return conv_core.routes(x, self.weight, self.bias, self.stride,
+                                self.padding, self.dilation, self.groups,
+                                self.padding_mode)
+
+    def forward(self, x):
+        w = self.weight
+        kernel = self.launches(x)
+        if kernel:
+            y = conv_core.conv2d_tc(x.contiguous(), w, self.bias,
+                                    packed=self._packed())
+        else:
+            y = super().forward(x)
+        counter = tracing.conv_counter()
+        if counter is not None:
+            tracing.count_conv(counter, kernel,
+                               2 * y.numel() * (w.numel() // w.shape[0]))
+        return y
+
 
 def conv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
-    return nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=kernel_size // 2)
+    return Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                  padding=kernel_size // 2)
 
 
 def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
@@ -23,17 +72,17 @@ def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2):
 
 
 def conv3x3(in_ch: int, out_ch: int, stride: int = 1):
-    return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
+    return Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
 
 
 def conv1x1(in_ch: int, out_ch: int, stride: int = 1):
-    return nn.Conv2d(in_ch, out_ch, 1, stride=stride)
+    return Conv2d(in_ch, out_ch, 1, stride=stride)
 
 
 def subpel_conv3x3(in_ch: int, out_ch: int, r: int = 1):
     """3x3 conv + PixelShuffle upsampler (`layers/layers.py:34-38`)."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, out_ch * r ** 2, 3, padding=1), nn.PixelShuffle(r)
+        Conv2d(in_ch, out_ch * r ** 2, 3, padding=1), nn.PixelShuffle(r)
     )
 
 

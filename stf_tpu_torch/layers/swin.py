@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .conv import Conv2d
 from .win_attention import WindowAttention, region_labels
 
 
@@ -163,7 +164,7 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int = 2, embed_dim: int = 48):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x):

@@ -167,6 +167,15 @@ def _split_meta(meta: np.ndarray, S: int):
             meta[n:n + S].view(np.uint32), meta[n + S:])
 
 
+def _replayed(counted):
+    """Adds one replay's counts (`Codec._capture_graph`'s): its kernel
+    launches to `_native.launch_counts`, its Conv2d FLOPs to the open
+    call's record."""
+    launched, conv = counted
+    _native.launch_counts.update(launched)
+    tracing.replayed(conv)
+
+
 def _as_tensor(x) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
 
@@ -807,7 +816,7 @@ class Codec:
 
     def _capture_encode(self, mode, inputs):
         """(graph, static inputs, pinned staging buffers, static outputs,
-        kernel launches per replay) of `mode`'s encode. Each static input
+        counts per replay) of `mode`'s encode. Each static input
         has its eager tensor's shape, dtype and strides, so the captured
         walk computes on the layouts the per-slice compress computes on.
         An input on the host (the full tier's image) gets a pinned buffer
@@ -822,10 +831,10 @@ class Codec:
             if t.device.type == "cpu" else None
             for t in inputs
         ]
-        graphs, out, launched = self._capture_graph(
+        graphs, out, counted = self._capture_graph(
             lambda: self._fused_encode_walk(mode, statics)
         )
-        return graphs, statics, staging, out, launched
+        return graphs, statics, staging, out, counted
 
     def _compress_fused(self, x, probe=None,
                         prefetch=None) -> Optional[Dict[str, Any]]:
@@ -857,7 +866,7 @@ class Codec:
                 mode, inputs
             )
         else:
-            graphs, statics, staging, out, launched = self._cached_graph(
+            graphs, statics, staging, out, counted = self._cached_graph(
                 self._enc_graphs, key,
                 lambda: self._capture_encode(mode, inputs),
             )
@@ -871,7 +880,7 @@ class Codec:
             with tracing.span("replay", "launch"):
                 for graph in graphs:
                     graph.replay()
-            _native.launch_counts.update(launched)
+            _replayed(counted)
             meta, banks, symbols, indexes, z_out = out
             # the next replay overwrites the graph's outputs
             symbols = [s.clone() for s in symbols]
@@ -957,13 +966,14 @@ class Codec:
     def _capture_graph(self, fn, *more):
         """Run `fn` once eagerly (loads every kernel, fills cuDNN's
         handles and the layers' caches), then capture it: ([graph], its
-        static outputs, kernel launches per replay). Each of `more`, a
-        function of the outputs before it, is then run and captured the
-        same way into a graph of its own, replayed after the ones before;
-        the outputs returned are the last function's. The launch counts
-        are Python-side, so they move at capture only: the capture's
-        increments are taken back, and the caller adds them at every
-        replay.
+        static outputs, counts per replay: (kernel launches, Conv2d FLOPs
+        by route)). Each of `more`, a function of the outputs before it,
+        is then run and captured the same way into a graph of its own,
+        replayed after the ones before; the outputs returned are the last
+        function's. The counts are Python-side, so they move at capture
+        only: the capture's launch increments are taken back, its FLOPs
+        kept aside (`tracing.capturing`), and the caller adds both at
+        every replay (`_replayed`).
 
         Every graph allocates in the codec's one memory pool. Graphs run
         one at a time on one stream, and a replay's outputs are read or
@@ -974,19 +984,21 @@ class Codec:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graphs, launched, out = [], collections.Counter(), None
+        conv = tracing.ConvFlops()
         for step in (fn,) + more:
             run = step if out is None else (lambda s=step, o=out: s(o))
             run()
             torch.cuda.synchronize(self.device)
             before = collections.Counter(counts)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._graph_pool):
+            with tracing.capturing(conv), torch.cuda.graph(
+                    graph, pool=self._graph_pool):
                 out = run()
             step_launched = counts - before
             counts.subtract(step_launched)
             launched += step_launched
             graphs.append(graph)
-        return graphs, out, launched
+        return graphs, out, (launched, conv)
 
     # -- decompress ----------------------------------------------------------
 
@@ -1145,7 +1157,7 @@ class Codec:
             y_hats, hvec, symbols = self._fused_walk(key, buf_dev)
             x_hat = self._synthesize(y_hats)
         else:
-            graphs, static_buf, out, launched = self._cached_graph(
+            graphs, static_buf, out, counted = self._cached_graph(
                 self._graphs, key, lambda: self._capture(key, buf)
             )
             with tracing.span("upload", "host"):
@@ -1156,7 +1168,7 @@ class Codec:
             with tracing.span("replay", "launch"):
                 for graph in graphs:
                     graph.replay()
-            _native.launch_counts.update(launched)
+            _replayed(counted)
             # the next replay overwrites the graph's outputs
             x_hat, hvec = out[0].clone(), out[1].clone()
             symbols = [s.clone() for s in out[2]]
@@ -1178,7 +1190,7 @@ class Codec:
 
     def _capture(self, key, buf):
         """(graphs, static input buffer, static outputs (x_hat, hashes,
-        symbols), kernel launches per replay) of the fused decompress for
+        symbols), counts per replay) of the fused decompress for
         `key`: one graph of the walk and the synthesis at pipeline 1; at
         pipeline > 1 the walk's graph ends at the walk and a second graph
         synthesises from its outputs, as the JAX codec's split_synth."""
@@ -1204,10 +1216,10 @@ class Codec:
             return self._synthesize(y_hats), hvec, symbols
 
         if len(subs) == 1:
-            graphs, out, launched = self._capture_graph(lambda: synth(walk()))
+            graphs, out, counted = self._capture_graph(lambda: synth(walk()))
         else:
-            graphs, out, launched = self._capture_graph(walk, synth)
-        return graphs, static_buf, out, launched
+            graphs, out, counted = self._capture_graph(walk, synth)
+        return graphs, static_buf, out, counted
 
     @tracing.traced("decode", "z_host_rans")
     @torch.inference_mode()

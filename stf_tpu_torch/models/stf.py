@@ -28,7 +28,7 @@ import numpy as np
 import torch.nn as nn
 
 from ..entropy import EntropyBottleneck
-from ..layers import BasicLayer, PatchEmbed
+from ..layers import BasicLayer, Conv2d, PatchEmbed
 from .base import (
     ChannelARModel,
     conv_gelu_stack,
@@ -80,9 +80,9 @@ class SymmetricalTransFormer(ChannelARModel):
             list(depths)[::-1], list(num_heads)[::-1], "split",
         )
         self.end_conv = nn.Sequential(
-            nn.Conv2d(embed_dim, embed_dim * patch_size ** 2, 5, padding=2),
+            Conv2d(embed_dim, embed_dim * patch_size ** 2, 5, padding=2),
             nn.PixelShuffle(patch_size),
-            nn.Conv2d(embed_dim, 3, 3, padding=1),
+            Conv2d(embed_dim, 3, 3, padding=1),
         )
         M, N = self.M, self.N
         self.h_a = conv_gelu_stack((M, M) + HYPER_ANALYSIS + (N,),

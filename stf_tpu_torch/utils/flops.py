@@ -14,7 +14,10 @@ Kernel B1 (window attention) is counted from its shapes: 2 x 2 x tokens
 x window tokens x channels (q k^T and P v). On the card its launch is
 invisible to the counter; on the CPU its plain version's two batched
 matmuls, which the counter sees at exactly that count, are taken out of
-`aten.bmm`, so both devices count the same.
+`aten.bmm`, so both devices count the same. The 3xTF32 convolution
+kernel (`layers.conv_core`, the card's f32 stride-1 convolutions outside
+autograd) is invisible to the counter too: its calls are counted from
+their shapes, as the counter counts a convolution, under "convolution".
 
 The JAX package counts with XLA's `cost_analysis` of the compiled
 forward, which counts other things (PERF.md has the gap by op).
@@ -53,18 +56,25 @@ def model_flops(model: torch.nn.Module,
     `input_shape`, on `device` (None: the model's own)."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from ..layers.conv import Conv2d
     from ..layers.win_attention import WindowAttention
 
     if device is not None:
         model = model.to(device)
     device = next(model.parameters()).device
-    b1 = []
+    b1, conv_tc = [], []
 
     def count_b1(mod, args, out):
         b1.append(b1_flops(out.shape, mod.window_size[0]))
 
+    def count_conv_tc(mod, args, out):
+        if mod.launches(args[0]):
+            conv_tc.append(2 * out.numel() * mod.weight[0].numel())
+
     hooks = [m.register_forward_hook(count_b1) for m in model.modules()
              if isinstance(m, WindowAttention)]
+    hooks += [m.register_forward_hook(count_conv_tc) for m in model.modules()
+              if isinstance(m, Conv2d)]
     counter = FlopCounterMode(display=False)
     was_training = model.training
     model.eval()
@@ -84,6 +94,8 @@ def model_flops(model: torch.nn.Module,
             if by_op["bmm"] == 0:
                 del by_op["bmm"]
         by_op["window_attention"] = sum(b1)
+    if conv_tc:
+        by_op["convolution"] = by_op.get("convolution", 0) + sum(conv_tc)
     return {"flops": sum(by_op.values()), "by_op": by_op,
             "params": count_params(model)}
 

@@ -20,7 +20,12 @@ A call's record (`Call`) keeps its spans (name, kind, parent, phase, start
 and end on `time.perf_counter_ns`), the outcome of its fused path (one of
 `OUTCOMES`, the most severe reported; None where the codec takes no fused
 path), and on encode the lane stream's framing bytes, and the stream bytes
-and images of its result. A decompress run inside a compress adds its
+and images of its result. It also sums the FLOPs (2 M N K) of the port's
+`Conv2d` calls by route: `conv_kernel_flops` those that launched the
+3xTF32 kernel, `conv_library_flops` those that took `F.conv2d`. A CUDA
+graph's capture keeps the sums of the calls it captured (`capturing`,
+always on, since a graph is captured once and replayed in later calls),
+and each replay adds them to the record (`replayed`). A decompress run inside a compress adds its
 spans to the compress's record, under the span that holds it, and keeps
 no record of its own.
 
@@ -64,6 +69,7 @@ _NULL = contextlib.nullcontext()
 
 class _State(threading.local):
     call = None  # the innermost open Call of this thread
+    capture = None  # the ConvFlops of a CUDA-graph capture in progress
 
 
 _state = _State()
@@ -105,6 +111,7 @@ class Call:
             self.outcome = None
             self.framing_bytes = 0
             self.y_bytes = self.z_bytes = self.images = 0
+            self.conv_kernel_flops = self.conv_library_flops = 0
             self._stack = []  # indexes of the open spans, innermost last
         self._open(first, "stage")
 
@@ -218,6 +225,58 @@ def outcome(name: str):
     call = current()
     if call is not None:
         call.set_outcome(name)
+
+
+class ConvFlops:
+    """The Conv2d FLOPs counted while a CUDA graph was captured, by route
+    (the names of a `Call`'s sums)."""
+
+    __slots__ = ("conv_kernel_flops", "conv_library_flops")
+
+    def __init__(self):
+        self.conv_kernel_flops = self.conv_library_flops = 0
+
+
+def conv_counter():
+    """Where a Conv2d call's FLOPs go (`count_conv`): the CUDA-graph
+    capture in progress, else the record of the thread's open call while
+    it records (a decompress inside a compress: the compress's), else
+    None."""
+    if _state.capture is not None:
+        return _state.capture
+    call = _state.call
+    return None if call is None else call._root
+
+
+def count_conv(counter, kernel: bool, flops: int):
+    """Adds one Conv2d call's FLOPs to `counter` (`conv_counter()`), under
+    its route: the kernel, else the library."""
+    if kernel:
+        counter.conv_kernel_flops += flops
+    else:
+        counter.conv_library_flops += flops
+
+
+@contextlib.contextmanager
+def capturing(sums: ConvFlops):
+    """While a CUDA graph is captured: the captured Conv2d calls count into
+    `sums`, in place of any open call's record (a capture computes
+    nothing; each replay adds them, `replayed`)."""
+    outer = _state.capture
+    _state.capture = sums
+    try:
+        yield sums
+    finally:
+        _state.capture = outer
+
+
+def replayed(sums):
+    """Adds a captured graph's Conv2d FLOPs (`capturing`'s `ConvFlops`) to
+    the record of the thread's open call, for one replay."""
+    counter = conv_counter()
+    if counter is not None:
+        counter.conv_kernel_flops += sums.conv_kernel_flops
+        counter.conv_library_flops += sums.conv_library_flops
 
 
 def profiler_range(name: str):

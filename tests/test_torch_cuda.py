@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+import _conv_shapes
 import _lane_stress as ls
 from stf_tpu_torch import _native
 from stf_tpu_torch.ans import lane_coder as lc
 from stf_tpu_torch.entropy import build_gc_tables, get_scale_table
 from stf_tpu_torch.layers import shifted_window_region_labels
 from stf_tpu_torch.layers import attention_core as ac
+from stf_tpu_torch.layers import conv_core
 
 pytestmark = pytest.mark.cuda
 
@@ -1392,3 +1394,188 @@ def test_flop_count_on_the_card_equals_the_cpu(dev, name, config):
     assert card["by_op"]["window_attention"] == cpu["by_op"][
         "window_attention"] > 0
     assert card["by_op"]["convolution"] == cpu["by_op"]["convolution"]
+
+
+# -- the 3xTF32 convolution kernel (`layers.conv_core`) ----------------------
+
+
+def _conv_inputs(dev, ci, co, k, h, w, batch, seed=0):
+    """x (batch, ci, h, w), weight (co, ci, k, k) at torch's default scale
+    and a bias, from one seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, ci, h, w, device=dev, generator=g)
+    wt = torch.randn(co, ci, k, k, device=dev, generator=g) / (ci * k * k) ** 0.5
+    return x, wt, torch.randn(co, device=dev, generator=g)
+
+
+@pytest.mark.parametrize(
+    "shape", _conv_shapes.routed() + _conv_shapes.routed(transposed=True),
+    ids=str)
+def test_conv_tc_matches_f64_within_4x_cudnn_f32(dev, shape):
+    """The kernel at every shape the benchmark's cells route to it (512x768
+    and 768x512), and at a pruned CC_GD's odd widths: its largest error
+    against an f64 convolution is at most 4x that of cuDNN's f32
+    convolution (TF32 off) at the same inputs; one launch a call."""
+    import torch.nn.functional as F
+
+    from stf_tpu_torch.utils.numerics import use_numerical_policy
+
+    use_numerical_policy()
+    ci, co, k, h, w = shape
+    x, wt, b = _conv_inputs(dev, ci, co, k, h, w, 2 if h * w <= 6144 else 1)
+    key = conv_core.launch_key(k)
+    assert torch.equal(conv_core.pack_weight(wt),
+                       conv_core.pack_weight_plain(wt))
+    before = _native.launch_counts[key]
+    got = conv_core.conv2d_tc(x, wt, b)
+    want = F.conv2d(x.double(), wt.double(), b.double(), padding=k // 2)
+    cudnn = F.conv2d(x, wt, b, padding=k // 2)
+    torch.cuda.synchronize()
+    assert _native.launch_counts[key] == before + 1
+    err = (got.double() - want).abs().max().item()
+    ref = (cudnn.double() - want).abs().max().item()
+    print(f"{shape}: kernel {err:.3g}, cuDNN f32 {ref:.3g}")
+    assert err <= 4 * ref, (err, ref)
+
+
+@pytest.mark.parametrize("shape", [
+    (480, 224, 3, 32, 48), (176, 128, 3, 32, 48), (320, 160, 1, 32, 48),
+    (256, 1152, 3, 16, 24), (48, 192, 5, 64, 96), (48, 3, 3, 64, 96),
+    (61, 37, 3, 32, 48)], ids=str)
+def test_conv_tc_is_bitwise_batch_and_configuration_invariant(dev, shape):
+    """An image's outputs at batch 24 equal, bit for bit, its outputs alone
+    and the batch's outputs under every tile configuration: each output's
+    sum runs in an order fixed by C_in and k alone."""
+    ci, co, k, h, w = shape
+    x, wt, b = _conv_inputs(dev, ci, co, k, h, w, 24, seed=1)
+    y = conv_core.conv2d_tc(x, wt, b)
+    for i in range(x.shape[0]):
+        assert torch.equal(conv_core.conv2d_tc(x[i:i + 1], wt, b), y[i:i + 1])
+    for config in range(len(conv_core.CONFIGS)):
+        assert torch.equal(conv_core.conv2d_tc(x, wt, b, config=config), y)
+
+
+def test_conv_tc_replays_in_a_graph_as_it_runs_eagerly(dev):
+    """A captured launch replayed on new inputs gives the eager launch's
+    bits; the kernel allocates nothing and does not synchronise, so it
+    captures as cuDNN's calls do."""
+    x, wt, b = _conv_inputs(dev, 352, 224, 3, 32, 48, 4, seed=2)
+    x2 = torch.randn_like(x)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv_core.conv2d_tc(static, wt, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv_core.conv2d_tc(static, wt, b)
+    for inp in (x, x2):
+        static.copy_(inp)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, conv_core.conv2d_tc(inp, wt, b))
+
+
+def test_conv2d_routes_on_the_card(dev):
+    """`Conv2d` launches the kernel for an f32 stride-1 call in inference
+    mode (a non-contiguous input made contiguous first; its weight's
+    packing kept until the weight changes in place) and not under
+    autograd (training), in bf16 or at stride 2, which reach cuDNN."""
+    from stf_tpu_torch.layers import Conv2d
+
+    layer = Conv2d(8, 16, 3, padding=1).to(dev)
+    x = torch.randn(2, 8, 10, 12, device=dev)
+    key = conv_core.launch_key(3)
+
+    def launched(fn):
+        before = _native.launch_counts[key]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _native.launch_counts[key] - before
+
+    with torch.inference_mode():
+        got, n = launched(lambda: layer(x))
+        assert n == 1
+        t, n = launched(lambda: layer(x.transpose(2, 3)))
+        assert n == 1 and torch.equal(t, conv_core.conv2d_tc(
+            x.transpose(2, 3).contiguous(), layer.weight, layer.bias))
+        packs = _native.launch_counts["conv_tc_pack"]
+        layer(x)
+        assert _native.launch_counts["conv_tc_pack"] == packs
+    with torch.no_grad():
+        layer.weight.mul_(2.0)
+    with torch.inference_mode():
+        twice, n = launched(lambda: layer(x))
+        assert n == 1 and _native.launch_counts["conv_tc_pack"] == packs + 1
+        assert torch.equal(twice, conv_core.conv2d_tc(x, layer.weight,
+                                                      layer.bias))
+    with torch.no_grad():
+        layer.weight.mul_(0.5)
+    with torch.inference_mode():
+        assert torch.equal(layer(x), got)
+    train, n = launched(lambda: layer(x))
+    assert n == 0 and train.requires_grad
+    assert (train.detach() - got).abs().max().item() <= 1e-5
+    with torch.inference_mode():
+        _, n = launched(lambda: layer.to(torch.bfloat16)(x.bfloat16()))
+        assert n == 0
+        strided = Conv2d(8, 16, 3, stride=2, padding=1).to(dev)
+        _, n = launched(lambda: strided(x))
+        assert n == 0
+
+
+def test_conv_tc_rejects_bad_inputs(dev):
+    """Other dtypes, non-contiguous operands, unknown configurations (the
+    Python table mirrors the library's) and kernel sizes raise."""
+    assert _native.load("convtc").stf_conv_tc_configs() == len(conv_core.CONFIGS)
+    x, wt, b = _conv_inputs(dev, 8, 16, 3, 10, 12, 2)
+    with pytest.raises(TypeError):
+        conv_core.conv2d_tc(x.double(), wt.double(), b.double())
+    with pytest.raises(ValueError):
+        conv_core.conv2d_tc(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError):
+        conv_core.conv2d_tc(x, wt[:, :4], b)
+    with pytest.raises(ValueError):
+        conv_core.conv2d_tc(x, wt, b, config=len(conv_core.CONFIGS))
+    with pytest.raises(ValueError):
+        conv_core.conv2d_tc(x, torch.zeros(16, 8, 7, 7, device=dev), b)
+
+
+@pytest.mark.parametrize("batch", [24, 1])
+@pytest.mark.parametrize("name", ["cnn", "stf"])
+def test_round_trip_through_the_conv_kernel(dev, name, batch):
+    """The full-width WACNN and STF (STF's scale stacks lifted as the
+    smoke lifts them) at 128x192: the full tier's compress (its first
+    call: capture and self-check) and a replay, then another codec's
+    fused and per-slice decompress, give the encoder's symbols; x_hat
+    fused = per-slice; the kernel launches in both phases."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model(name, seed=0)
+    if name == "stf":
+        with torch.no_grad():
+            for stack in model.cc_scale_transforms:
+                stack[-1].bias += 1.0
+    x = np.concatenate([_pattern(128, 192, k) for k in range(12)])[:batch]
+    enc_codec = Codec(model, coder="lane", device=dev, fused_encode=True)
+    dec_codec = Codec(model, coder="lane", device=dev)
+
+    def conv_launches(before):
+        return sum(v for k, v in _lane_launches(before).items()
+                   if k.startswith("conv_tc"))
+
+    enc_codec.compress(x)
+    before = dict(_native.launch_counts)
+    enc = enc_codec.compress(x)
+    enc_launches = conv_launches(before)
+    before = dict(_native.launch_counts)
+    fused = dec_codec.decompress(enc["strings"], enc["shape"])
+    dec_launches = conv_launches(before)
+    dec_codec.fused = False
+    walk = dec_codec.decompress(enc["strings"], enc["shape"])
+    for s, f, w in zip(enc["symbols"], fused["symbols"], walk["symbols"]):
+        assert torch.equal(f, s) and torch.equal(w, s)
+    assert torch.equal(fused["x_hat"], walk["x_hat"])
+    assert enc_launches > 0 and dec_launches > 0, (enc_launches, dec_launches)
