@@ -167,10 +167,9 @@ def phase_costs(model: str, arch: dict, codec: dict, batch: int,
         return out, total * repeat, launches * repeat
 
     x = torch.empty(batch // ca, 3, H, W, device="meta")
-    (y, _), f_an, b1_an = count(lambda: ref.analyze(x), adtype, ca)
+    (y, z), f_an, b1_an = count(lambda: ref.analyze(x), adtype, ca)
     y = torch.empty(batch, *y.shape[1:], device="meta")
-    zh, zw = -(-y.shape[2] // 4), -(-y.shape[3] // 4)
-    z_hat = torch.empty(batch, ref.N, zh, zw, device="meta")
+    z_hat = torch.empty(batch, *z.shape[1:], device="meta")
     (lm, ls), f_hyper, b1_hyper = count(lambda: ref.hyper(z_hat, y.shape[2:]),
                                         "float32")
 

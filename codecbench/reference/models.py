@@ -1,22 +1,17 @@
-"""Plain PyTorch WACNN and STF: the benchmark's reference of the coding
-transforms.
+"""The parts that the benchmark's plain PyTorch reference architectures
+share; each architecture is a file of its own, `arch/<model>.py`, found
+by the configuration's `model` (`build`).
 
 Independent of the program under test: no kernel of its own, no CUDA
 graph, no native library, nothing imported from the measured package.
 Module and parameter names are the published models' torch names
-(`compressai/models/cnn.py`, `compressai/models/stf.py` of the STF
-codebase), so one state dict loads into the program's model and into
-these. The forward follows the papers' equations at float32:
-
-  * WACNN (Zou et al., CVPR 2022): g_a = 4 stride-2 5x5 convs with GDN
-    and two window-attention blocks (8x8 windows, 8 heads; 4x4, 8 heads),
-    g_s the mirror with IGDN and transposed convs; hyper transforms of
-    3x3 convs and GELU; 10 channel slices, each conditioned on up to 5
-    decoded ones, with a latent residual prediction 0.5 tanh(.).
-  * STF (same paper): Swin analysis (patch 2, embed 48, depths 2/2/6/2,
-    heads 3/6/12/24, 4x4 windows, patch merging), the mirrored Swin
-    synthesis with patch splits, then a 5x5 conv, pixel shuffle and a 3x3
-    conv; M = 384, 12 slices, each conditioned on up to 6.
+(`compressai/models/*.py` of the STF codebase), so one state dict loads
+into the program's model and into these. The forward follows the papers'
+equations at float32. Here: the products (convolution, transposed
+convolution, linear), GDN, window attention, the Swin block, stage,
+patch merging and split, the hyper and slice convolution stacks, the
+entropy bottleneck's parameters and `ChannelAR`, the channel-wise coding
+steps every architecture inherits.
 
 Window attention is written out: softmax(q k^T * hd^-0.5 + relative
 position bias + shift penalty) v, with a -100 penalty between tokens of
@@ -29,9 +24,17 @@ control can compute the same graph at a lower precision (`set_rounding`).
 GDN's reparametrised beta and gamma are computed in `param_dtype`: a
 configuration that serves its parameters in bfloat16 states that this
 step runs in bfloat16.
+
+An architecture file imports torch, this module and the standard library
+(nothing of the program: `test_bench_reference.py` checks), subclasses
+`ChannelAR`, takes `param_dtype` and its configuration's `arch` keys as
+keyword arguments, and ends with `ARCHITECTURE = <its class>`.
 """
 
+import importlib.util
 import math
+import os
+import re
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -180,49 +183,7 @@ class WindowAttention(nn.Module):
         return self.proj(o)
 
 
-# -- WACNN ------------------------------------------------------------------
-
-
-class ResidualUnit(nn.Module):
-    def __init__(self, n):
-        super().__init__()
-        self.conv = nn.Sequential(conv1x1(n, n // 2), nn.GELU(),
-                                  conv3x3(n // 2, n // 2), nn.GELU(),
-                                  conv1x1(n // 2, n))
-
-    def forward(self, x):
-        return F.gelu(self.conv(x) + x)
-
-
-class WinBasedAttention(nn.Module):
-    """Shifted-window attention with a residual, on an NCHW map."""
-
-    def __init__(self, dim, heads, ws, shift):
-        super().__init__()
-        self.shift = shift
-        self.attn = WindowAttention(dim, ws, heads)
-
-    def forward(self, x):
-        s = self.shift
-        h = x.permute(0, 2, 3, 1)
-        a = torch.roll(h, (-s, -s), (1, 2)) if s else h
-        a = self.attn(a, s)
-        a = torch.roll(a, (s, s), (1, 2)) if s else a
-        return (h + a).permute(0, 3, 1, 2)
-
-
-class AttentionBlock(nn.Module):
-    """WACNN's attention block: conv_a(x) * sigmoid(conv_b(x)) + x."""
-
-    def __init__(self, dim, heads, ws, shift):
-        super().__init__()
-        self.conv_a = nn.Sequential(*[ResidualUnit(dim) for _ in range(3)])
-        self.conv_b = nn.Sequential(WinBasedAttention(dim, heads, ws, shift),
-                                    *[ResidualUnit(dim) for _ in range(3)],
-                                    conv1x1(dim, dim))
-
-    def forward(self, x):
-        return self.conv_a(x) * torch.sigmoid(self.conv_b(x)) + x
+# -- convolution stacks, entropy bottleneck, the channel-wise walk ------------
 
 
 def conv_stack(widths, strides):
@@ -268,7 +229,7 @@ class EntropyBottleneck(nn.Module):
 
 
 class ChannelAR(nn.Module):
-    """The coding steps both models share, on NCHW tensors."""
+    """The coding steps every architecture shares, on NCHW tensors."""
 
     def split(self, y):
         w = -(-self.M // self.num_slices)
@@ -319,42 +280,7 @@ class ChannelAR(nn.Module):
         raise NotImplementedError
 
 
-def _ramp(a, b, n=5):
-    return tuple(round(a + (b - a) * i / (n - 1)) for i in range(n))
-
-
-class WACNN(ChannelAR):
-    def __init__(self, N=192, M=320, num_slices=10, max_support_slices=5,
-                 param_dtype=torch.float32):
-        super().__init__()
-        self.N, self.M = N, M
-        self.num_slices, self.max_support_slices = num_slices, max_support_slices
-        gdn = lambda inverse=False: GDN(N, inverse, param_dtype)  # noqa: E731
-        self.g_a = nn.Sequential(
-            conv(3, N), gdn(), conv(N, N), gdn(),
-            AttentionBlock(N, 8, 8, 4), conv(N, N), gdn(), conv(N, M),
-            AttentionBlock(M, 8, 4, 2))
-        self.g_s = nn.Sequential(
-            AttentionBlock(M, 8, 4, 2), deconv(M, N), gdn(True),
-            deconv(N, N), gdn(True), AttentionBlock(N, 8, 8, 4),
-            deconv(N, N), gdn(True), deconv(N, 3))
-        self.h_a = conv_stack((M,) + _ramp(M, N), (1, 1, 2, 1, 2))
-        self.h_mean_s = hyper_synthesis((N,) + _ramp(N, M))
-        self.h_scale_s = hyper_synthesis((N,) + _ramp(N, M))
-        self._slice_transforms(M)
-        self.entropy_bottleneck = EntropyBottleneck(N)
-
-    def analysis(self, x):
-        return self.g_a(x)
-
-    def synthesis(self, y_hat):
-        return self.g_s(y_hat)
-
-    def analysis_modules(self):
-        return [self.g_a, self.h_a]
-
-
-# -- STF --------------------------------------------------------------------
+# -- Swin parts --------------------------------------------------------------
 
 
 class Mlp(nn.Module):
@@ -392,10 +318,13 @@ class SwinBlock(nn.Module):
 
 
 class PatchMerging(nn.Module):
-    def __init__(self, dim):
+    """2x down: each 2x2 neighbourhood gathered, LayerNorm(4 dim), then a
+    Linear to `out` channels (2 dim by default, STF's)."""
+
+    def __init__(self, dim, out=None):
         super().__init__()
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim if out is None else out, bias=False)
 
     def forward(self, x):
         _, H, W, _ = x.shape
@@ -407,10 +336,13 @@ class PatchMerging(nn.Module):
 
 
 class PatchSplit(nn.Module):
-    def __init__(self, dim):
+    """2x up: LayerNorm(dim), a Linear to 4 `out` channels (dim / 2 by
+    default, STF's), then depth-to-space in PixelShuffle's order."""
+
+    def __init__(self, dim, out=None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.reduction = Linear(dim, 2 * dim, bias=False)
+        self.reduction = Linear(dim, 2 * dim if out is None else 4 * out, bias=False)
 
     def forward(self, x):
         x = self.reduction(self.norm(x))
@@ -435,75 +367,29 @@ class Stage(nn.Module):
         return x if self.downsample is None else self.downsample(x)
 
 
-class PatchEmbed(nn.Module):
-    def __init__(self, patch, embed):
-        super().__init__()
-        self.patch = patch
-        self.proj = Conv(3, embed, patch, stride=patch)
-        self.norm = nn.LayerNorm(embed, eps=1e-5)
+# -- the architectures, one file each ------------------------------------------
 
-    def forward(self, x):
-        p = self.patch
-        H, W = x.shape[2:]
-        if H % p or W % p:
-            x = F.pad(x, (0, -W % p, 0, -H % p))
-        return self.norm(self.proj(x).permute(0, 2, 3, 1))
-
-
-class STF(ChannelAR):
-    def __init__(self, patch_size=2, embed_dim=48, depths=(2, 2, 6, 2),
-                 num_heads=(3, 6, 12, 24), window_size=4, num_slices=12,
-                 mlp_ratio=4.0, param_dtype=torch.float32):
-        super().__init__()
-        n = len(depths)
-        self.M = embed_dim * 2 ** (n - 1)
-        self.N = self.M // 2
-        self.num_slices = num_slices
-        self.max_support_slices = num_slices // 2
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
-        self.layers = nn.ModuleList(
-            Stage(embed_dim * 2 ** i, depths[i], num_heads[i], window_size,
-                  "merge" if i < n - 1 else None) for i in range(n))
-        self.syn_layers = nn.ModuleList(
-            Stage(embed_dim * 2 ** (n - 1 - i), depths[::-1][i],
-                  num_heads[::-1][i], window_size,
-                  "split" if i < n - 1 else None) for i in range(n))
-        self.end_conv = nn.Sequential(
-            Conv(embed_dim, embed_dim * patch_size ** 2, 5, padding=2),
-            nn.PixelShuffle(patch_size), Conv(embed_dim, 3, 3, padding=1))
-        M, N = self.M, self.N
-        self.h_a = conv_stack((M, M, 336, 288, 240, N), (1, 1, 2, 1, 2))
-        self.h_mean_s = hyper_synthesis((N, 240, 288, 336, 384, 384))
-        self.h_scale_s = hyper_synthesis((N, 240, 288, 336, 384, 384))
-        self._slice_transforms(384)
-        self.entropy_bottleneck = EntropyBottleneck(N)
-
-    def analysis(self, x):
-        x = self.patch_embed(x)
-        for layer in self.layers:
-            x = layer(x)
-        return x.permute(0, 3, 1, 2)
-
-    def synthesis(self, y_hat):
-        x = y_hat.permute(0, 2, 3, 1)
-        for layer in self.syn_layers:
-            x = layer(x)
-        return self.end_conv(x.permute(0, 3, 1, 2))
-
-    def analysis_modules(self):
-        return [self.patch_embed, self.layers, self.h_a]
-
-
-ARCHITECTURES = {"cnn": WACNN, "stf": STF}
+ARCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "arch")
+MODEL_NAME = re.compile(r"[a-z0-9_]+")
 
 
 def build(model: str, arch: dict, param_dtype=torch.float32,
           device=None) -> ChannelAR:
-    """The reference model `model` ("cnn" or "stf") at the sizes `arch`,
-    its parameters uninitialised, on `device`."""
+    """The reference model `model` at the sizes `arch`, its parameters
+    uninitialised, on `device`: the `ARCHITECTURE` of `arch/<model>.py`,
+    loaded by path."""
+    if not isinstance(model, str) or not MODEL_NAME.fullmatch(model):
+        raise ValueError(f"model name {model!r}: expected [a-z0-9_]+")
+    path = os.path.join(ARCH_DIR, model + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no reference architecture for model {model!r}: "
+                       f"expected the file {path}")
+    spec = importlib.util.spec_from_file_location("codecbench_arch_" + model, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()}
     with torch.device(device or "cpu"):
-        return ARCHITECTURES[model](param_dtype=param_dtype, **kw).eval()
+        return mod.ARCHITECTURE(param_dtype=param_dtype, **kw).eval()
 
 
 def set_rounding(module: nn.Module, fn: Callable) -> None:

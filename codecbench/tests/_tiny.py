@@ -1,7 +1,13 @@
-"""Small cells of both models for the CPU tests: the configurations'
-structure at a size a test run holds (64x64 and 64x128 images, narrow
-channels, 4 slices), run through the harness on the CPU, where the
-program's kernels run their plain versions and its graphs run eagerly."""
+"""Small cells of every reference architecture for the CPU tests: the
+configurations' structure at a size a test run holds (64x64 and 64x128
+images, narrow channels, 4 slices), run through the harness on the CPU,
+where the program's kernels run their plain versions and its graphs run
+eagerly.
+
+Each model is a file `tiny/<model>.json`: its `model`, `arch`, `codec`
+and `weights`, as a configuration holds them, and `limits`, the cell
+whose correctness limits it is held to. A file added there puts its model
+into every test parametrised over `MODELS`."""
 
 import json
 import os
@@ -13,20 +19,18 @@ from codecbench.harness import cell as harness
 from codecbench.harness.traffic import Traffic
 
 BENCH_DIR = harness.BENCH_DIR
-CONFIGS = {
-    "cnn": {"model": "cnn",
-            "arch": {"N": 16, "M": 32, "num_slices": 4, "max_support_slices": 2},
-            "codec": {"coder": "lane", "dtype": "bfloat16", "tier": "full",
-                      "pipeline": 2, "analyze_chunks": 1, "synth_chunks": 1},
-            "weights": {"scale_lift": 1.0, "gains": {"g_a.7": 12.5, "h_a.8": 100.0}}},
-    "stf": {"model": "stf",
-            "arch": {"embed_dim": 16, "depths": [1, 1, 2, 1],
-                     "num_heads": [1, 2, 4, 8], "num_slices": 4},
-            "codec": {"coder": "lane", "dtype": "bfloat16", "tier": "split",
-                      "pipeline": 1, "analyze_chunks": 2, "synth_chunks": 2},
-            "weights": {"scale_lift": 1.0, "gains": {"h_a.8": 100.0}}},
-}
-LIMITS = {"cnn": "wacnn.kodak24", "stf": "stf.kodak24"}
+TINY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiny")
+MODELS = sorted(f[:-len(".json")] for f in os.listdir(TINY_DIR) if f.endswith(".json"))
+
+
+def _load(model):
+    with open(os.path.join(TINY_DIR, model + ".json")) as f:
+        return json.load(f)
+
+
+_TINY = {m: _load(m) for m in MODELS}
+CONFIGS = {m: {k: v for k, v in t.items() if k != "limits"} for m, t in _TINY.items()}
+LIMITS = {m: t["limits"] for m, t in _TINY.items()}
 
 
 def limits(model):

@@ -2,10 +2,18 @@
 control (the reference one precision lower in the program's place) is
 not. Marked `cuda`; skips without a card."""
 
+import json
+import os
+
 import pytest
 import torch
 
+from codecbench.harness import cell as harness
+
 pytestmark = pytest.mark.cuda
+
+with open(os.path.join(harness.REPO, "BENCHMARK.json")) as f:
+    WORKLOADS = [w["name"] for w in json.load(f)["workloads"]]
 
 
 @pytest.fixture
@@ -15,8 +23,7 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("workload", ["wacnn.kodak24", "stf.kodak24",
-                                      "wacnn.single", "stf.single"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_cell_is_correct_and_its_control_is_not(card, workload):
     from codecbench.calibrate import readings
 

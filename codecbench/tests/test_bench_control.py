@@ -6,6 +6,7 @@ to the cells' own limits."""
 import pytest
 import torch
 
+from codecbench.harness import cell as harness
 from codecbench.reference import check, weights
 from codecbench.reference import models as ref_models
 
@@ -14,17 +15,17 @@ import _tiny
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("model", ["cnn", "stf"])
+@pytest.mark.parametrize("model", _tiny.MODELS)
 def test_a_sound_run_is_correct(model):
     r = _tiny.run(model)
     assert r["correct"] and r["failed"] == 0, r["numbers"]
 
 
-@pytest.mark.parametrize("model", ["cnn", "stf"])
+@pytest.mark.parametrize("model", _tiny.MODELS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_the_control_is_not_correct(model, seed):
     cfg = _tiny.CONFIGS[model]
-    dtype = torch.bfloat16
+    dtype = harness.DTYPES[cfg["codec"]["dtype"]]
     meta = ref_models.build(model, cfg["arch"], dtype, device="meta")
     state = weights.make_state_dict(meta, seed, "cpu", cfg["weights"]["scale_lift"],
                                     dtype, cfg["weights"]["gains"])
@@ -82,7 +83,7 @@ def _z_symbol_altered(monkeypatch):
 
 @pytest.mark.parametrize("fault", [_decoded_symbol_altered, _xhat_altered,
                                    _index_altered, _z_symbol_altered])
-@pytest.mark.parametrize("model", ["cnn", "stf"])
+@pytest.mark.parametrize("model", _tiny.MODELS)
 def test_an_answer_altered_where_it_is_produced_is_not_correct(monkeypatch, fault, model):
     fault(monkeypatch)
     r = _tiny.run(model, seconds=0.5)

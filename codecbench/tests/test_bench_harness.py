@@ -1,6 +1,7 @@
-"""The harness is driven by data: a configuration, a traffic mix and a
-per-layer metric added as files are found by name; BENCHMARK.json keeps
-to the allowed names and units; the runner loads no JAX."""
+"""The harness is driven by data: a configuration, a traffic mix, a
+per-layer metric and a reference architecture added as files are found
+by name; BENCHMARK.json keeps to the allowed names and units; the runner
+loads no JAX."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import sys
 import pytest
 
 from codecbench.harness import cell as harness
+from codecbench.reference import models as ref_models
 
 from _tiny import CONFIGS
 
@@ -25,11 +27,17 @@ def _bench():
         return json.load(f)
 
 
-def test_added_config_mix_and_metric_are_found_by_name(tmp_path):
+def _copy(tmp_path, ignore=("__pycache__", "tests")):
+    """BENCHMARK.json and codecbench/ copied into tmp_path; returns the
+    copy of codecbench/."""
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(REPO, "codecbench"), tmp_path / "codecbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench_dir = tmp_path / "codecbench"
+                    ignore=shutil.ignore_patterns(*ignore))
+    return tmp_path / "codecbench"
+
+
+def test_added_config_mix_and_metric_are_found_by_name(tmp_path):
+    bench_dir = _copy(tmp_path)
     (bench_dir / "configs" / "tiny.json").write_text(json.dumps(CONFIGS["cnn"]))
     (bench_dir / "traffic" / "pairs.json").write_text(json.dumps(
         {"loop": "closed", "batch": 2, "sizes": [[64, 64, 4]],
@@ -64,6 +72,74 @@ def test_added_config_mix_and_metric_are_found_by_name(tmp_path):
     assert [tuple(x.shape) for x in pool] == [(2, 64, 64, 3)] * 2
     # an existing cell still finds its own files
     assert harness.load_cell("wacnn.kodak24", repo=str(tmp_path)).config["model"] == "cnn"
+
+
+# Run inside a copy of codecbench/ that holds one more architecture,
+# `cnn_copy` (arch/cnn.py under a new name), and its tests/tiny file: the
+# copy's own code builds it, draws its weights, counts its phase costs and
+# judges a run of it and of its control. The program's registry gets the
+# name as an alias of its WACNN, as a registry entry of the program's own
+# would give it.
+ROOM = """
+import os
+from stf_tpu_torch.zoo.registry import models
+models["cnn_copy"] = models["cnn"]
+import torch
+torch.set_num_threads(2)
+import _tiny
+from codecbench.harness import arith, cell as harness
+from codecbench.reference import check, weights
+from codecbench.reference import models as ref_models
+bench = os.path.abspath("codecbench")
+assert ref_models.ARCH_DIR == os.path.join(bench, "reference", "arch")
+assert _tiny.TINY_DIR == os.path.join(bench, "tests", "tiny")
+assert _tiny.MODELS == sorted(_tiny.MODELS) and "cnn_copy" in _tiny.MODELS
+cfg = _tiny.CONFIGS["cnn_copy"]
+dtype = harness.DTYPES[cfg["codec"]["dtype"]]
+ref = ref_models.build("cnn_copy", cfg["arch"], dtype, device="meta")
+assert type(ref).__name__ == "WACNN"
+state = weights.make_state_dict(ref, 3, "cpu", cfg["weights"]["scale_lift"],
+                                dtype, cfg["weights"]["gains"])
+same = weights.make_state_dict(ref_models.build("cnn", cfg["arch"], dtype, device="meta"),
+                               3, "cpu", cfg["weights"]["scale_lift"], dtype,
+                               cfg["weights"]["gains"])
+assert all(torch.equal(state[k], same[k]) for k in same) and state.keys() == same.keys()
+costs = arith.phase_costs("cnn_copy", cfg["arch"], cfg["codec"], 2, (64, 128))
+assert costs == arith.phase_costs("cnn", cfg["arch"], cfg["codec"], 2, (64, 128))
+assert costs["encode"]["b1"] and costs["decode"]["flops"]["float32"] > 0
+x = _tiny.cell("cnn_copy").traffic.pool(3, "cpu")[0]
+judged = check.reference_model("cnn_copy", cfg["arch"], state, dtype, "cpu")
+ctrl = check.control_model("cnn_copy", cfg["arch"], state, dtype, "cpu")
+got = check.judge(judged, x, check.control_outputs(ctrl, x, "cpu"), "cpu")
+assert not check.verdict(got, _tiny.limits("cnn_copy")), got
+r = _tiny.run("cnn_copy")
+assert r["correct"] and r["failed"] == 0, r["numbers"]
+print("ROOM OK")
+"""
+
+
+def test_an_architecture_added_as_files_is_built_weighted_counted_and_judged(tmp_path):
+    bench_dir = _copy(tmp_path, ignore=("__pycache__",))
+    arch = bench_dir / "reference" / "arch"
+    (arch / "cnn_copy.py").write_text((arch / "cnn.py").read_text())
+    tiny = bench_dir / "tests" / "tiny"
+    (tiny / "cnn_copy.json").write_text((tiny / "cnn.json").read_text().replace(
+        '"model": "cnn"', '"model": "cnn_copy"'))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(bench_dir / "tests"), REPO]))
+    out = subprocess.run([sys.executable, "-c", ROOM], capture_output=True,
+                         text=True, cwd=str(tmp_path), env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ROOM OK" in out.stdout
+
+
+def test_a_missing_architecture_file_is_named():
+    with pytest.raises(KeyError, match=re.escape(
+            os.path.join(ref_models.ARCH_DIR, "no_such_model.py"))):
+        ref_models.build("no_such_model", {}, device="meta")
+    for bad in ("../cnn", "CNN", "cnn.py", ""):
+        with pytest.raises(ValueError, match="model name"):
+            ref_models.build(bad, {}, device="meta")
 
 
 def test_benchmark_names_and_units_keep_to_the_allowed_characters():

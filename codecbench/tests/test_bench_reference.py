@@ -1,6 +1,9 @@
 """The frozen reference against the program's CPU path at a small size,
-and the reference's independence from the program."""
+and the reference's independence from the program: its shared modules
+and every architecture file."""
 
+import ast
+import os
 import subprocess
 import sys
 
@@ -10,7 +13,7 @@ import torch
 from codecbench.reference import check, weights
 from codecbench.reference import models as ref_models
 
-from _tiny import CONFIGS
+from _tiny import CONFIGS, MODELS
 
 torch.set_num_threads(2)
 
@@ -33,7 +36,7 @@ def _close(got, want, rtol=2e-5):
     assert (got - want).abs().max().item() <= rtol * scale
 
 
-@pytest.mark.parametrize("model", ["cnn", "stf"])
+@pytest.mark.parametrize("model", MODELS)
 @torch.no_grad()
 def test_reference_matches_the_program_on_the_cpu(model):
     """Every coding step at float32: analysis, hyper synthesis, each
@@ -77,14 +80,43 @@ def test_bf16_served_parameters_match_the_codec_synthesis():
     _close(ref.synthesize(y_hat), coding.synthesize(y_hat))
 
 
+def _arch_models():
+    return sorted(f[:-3] for f in os.listdir(ref_models.ARCH_DIR) if f.endswith(".py"))
+
+
 def test_reference_imports_nothing_of_the_program():
+    """The shared modules, and every architecture file built at its
+    defaults on the meta device."""
+    assert set(MODELS) <= set(_arch_models())
     code = ("import sys; import codecbench.reference.check, "
             "codecbench.reference.weights, codecbench.reference.images; "
+            "from codecbench.reference import models; "
+            f"[models.build(m, {{}}, device='meta') for m in {_arch_models()!r}]; "
             "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=_repo()).stdout.split()
     assert not {"jax", "jaxlib", "flax", "stf_tpu", "stf_tpu_torch"} & set(out)
     assert "torch" in out
+
+
+@pytest.mark.parametrize("model", _arch_models())
+def test_an_architecture_file_imports_only_torch_and_the_shared_parts(model):
+    """Nothing of the program: torch, `codecbench.reference.models` and
+    the standard library."""
+    with open(os.path.join(ref_models.ARCH_DIR, model + ".py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, model
+            names.add(node.module)
+    assert names, model
+    for name in names:
+        top = name.split(".")[0]
+        assert (name == "codecbench.reference.models" or top == "torch"
+                or top in sys.stdlib_module_names), name
 
 
 def _repo():
