@@ -30,6 +30,10 @@ under `torch.no_grad()`, inference mode and the codec's CUDA-graph
 captures it records no graph and launches B1 once, as a direct call
 would. A bf16 call that needs a gradient raises: the JAX trainer trains
 in f32 only.
+
+Each launch adds its FLOPs, by design, to the codec call that records
+(`count_flops`, `utils/tracing.py`), or to the CUDA-graph capture in
+progress, whose replays add them.
 """
 
 import ctypes
@@ -332,7 +336,19 @@ def _launch(qkv, bias, labels, window: int, scale: float, design=None):
             f"{lib.stf_window_attention_error(rc).decode()}"
         )
     _native.launch_counts[launch_key(ws, hd, dtype)] += 1
+    count_flops(design, B, H, W, C, ws)
     return out
+
+
+def count_flops(design: str, B: int, H: int, W: int, C: int, window: int):
+    """Adds one launch's FLOPs, 4 N B H W C (q k^T and P v, N tokens a
+    window), under its design to the capture in progress or the open
+    codec call's record (`tracing.flop_counter`); nothing where neither
+    is open."""
+    counter = tracing.flop_counter()
+    if counter is not None:
+        tracing.count_b1(counter, design == HEAD_GROUP,
+                         4 * window * window * B * H * W * C)
 
 
 def launch_key(window: int, head_dim: int, dtype=torch.float32) -> str:

@@ -53,7 +53,7 @@ class Conv2d(nn.Conv2d):
                                     packed=self._packed())
         else:
             y = super().forward(x)
-        counter = tracing.conv_counter()
+        counter = tracing.flop_counter()
         if counter is not None:
             tracing.count_conv(counter, kernel,
                                2 * y.numel() * (w.numel() // w.shape[0]))

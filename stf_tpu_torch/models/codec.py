@@ -169,11 +169,11 @@ def _split_meta(meta: np.ndarray, S: int):
 
 def _replayed(counted):
     """Adds one replay's counts (`Codec._capture_graph`'s): its kernel
-    launches to `_native.launch_counts`, its Conv2d FLOPs to the open
-    call's record."""
-    launched, conv = counted
+    launches to `_native.launch_counts`, its Conv2d and B1 FLOPs to the
+    open call's record."""
+    launched, flops = counted
     _native.launch_counts.update(launched)
-    tracing.replayed(conv)
+    tracing.replayed(flops)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -967,13 +967,13 @@ class Codec:
         """Run `fn` once eagerly (loads every kernel, fills cuDNN's
         handles and the layers' caches), then capture it: ([graph], its
         static outputs, counts per replay: (kernel launches, Conv2d FLOPs
-        by route)). Each of `more`, a function of the outputs before it,
-        is then run and captured the same way into a graph of its own,
-        replayed after the ones before; the outputs returned are the last
-        function's. The counts are Python-side, so they move at capture
-        only: the capture's launch increments are taken back, its FLOPs
-        kept aside (`tracing.capturing`), and the caller adds both at
-        every replay (`_replayed`).
+        by route and B1 FLOPs by design)). Each of `more`, a function of
+        the outputs before it, is then run and captured the same way into
+        a graph of its own, replayed after the ones before; the outputs
+        returned are the last function's. The counts are Python-side, so
+        they move at capture only: the capture's launch increments are
+        taken back, its FLOPs kept aside (`tracing.capturing`), and the
+        caller adds both at every replay (`_replayed`).
 
         Every graph allocates in the codec's one memory pool. Graphs run
         one at a time on one stream, and a replay's outputs are read or
@@ -984,21 +984,21 @@ class Codec:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graphs, launched, out = [], collections.Counter(), None
-        conv = tracing.ConvFlops()
+        flops = tracing.FlopSums()
         for step in (fn,) + more:
             run = step if out is None else (lambda s=step, o=out: s(o))
             run()
             torch.cuda.synchronize(self.device)
             before = collections.Counter(counts)
             graph = torch.cuda.CUDAGraph()
-            with tracing.capturing(conv), torch.cuda.graph(
+            with tracing.capturing(flops), torch.cuda.graph(
                     graph, pool=self._graph_pool):
                 out = run()
             step_launched = counts - before
             counts.subtract(step_launched)
             launched += step_launched
             graphs.append(graph)
-        return graphs, out, (launched, conv)
+        return graphs, out, (launched, flops)
 
     # -- decompress ----------------------------------------------------------
 

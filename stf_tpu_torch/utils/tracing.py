@@ -22,12 +22,15 @@ and end on `time.perf_counter_ns`), the outcome of its fused path (one of
 path), and on encode the lane stream's framing bytes, and the stream bytes
 and images of its result. It also sums the FLOPs (2 M N K) of the port's
 `Conv2d` calls by route: `conv_kernel_flops` those that launched the
-3xTF32 kernel, `conv_library_flops` those that took `F.conv2d`. A CUDA
-graph's capture keeps the sums of the calls it captured (`capturing`,
-always on, since a graph is captured once and replayed in later calls),
-and each replay adds them to the record (`replayed`). A decompress run inside a compress adds its
-spans to the compress's record, under the span that holds it, and keeps
-no record of its own.
+3xTF32 kernel, `conv_library_flops` those that took `F.conv2d`; and the
+FLOPs (4 N B H W C, N tokens a window) of kernel B1's launches by design:
+`b1_head_group_flops` the head group's, `b1_window_flops` one block a
+(window, head). A CUDA graph's capture keeps the sums of the calls it
+captured (`capturing`, always on, since a graph is captured once and
+replayed in later calls), and each replay adds them to the record
+(`replayed`). A decompress run inside a compress adds its spans to the
+compress's record, under the span that holds it, and keeps no record of
+its own.
 
 Recording follows torch's profiler: a call records exactly when it starts
 while `torch.autograd.profiler._is_profiler_enabled` is set, the flag the
@@ -69,7 +72,7 @@ _NULL = contextlib.nullcontext()
 
 class _State(threading.local):
     call = None  # the innermost open Call of this thread
-    capture = None  # the ConvFlops of a CUDA-graph capture in progress
+    capture = None  # the FlopSums of a CUDA-graph capture in progress
 
 
 _state = _State()
@@ -112,6 +115,7 @@ class Call:
             self.framing_bytes = 0
             self.y_bytes = self.z_bytes = self.images = 0
             self.conv_kernel_flops = self.conv_library_flops = 0
+            self.b1_head_group_flops = self.b1_window_flops = 0
             self._stack = []  # indexes of the open spans, innermost last
         self._open(first, "stage")
 
@@ -227,29 +231,39 @@ def outcome(name: str):
         call.set_outcome(name)
 
 
-class ConvFlops:
-    """The Conv2d FLOPs counted while a CUDA graph was captured, by route
-    (the names of a `Call`'s sums)."""
+class FlopSums:
+    """The FLOPs counted while a CUDA graph was captured: Conv2d's by
+    route and B1's by design (the names of a `Call`'s sums)."""
 
-    __slots__ = ("conv_kernel_flops", "conv_library_flops")
+    __slots__ = ("conv_kernel_flops", "conv_library_flops",
+                 "b1_head_group_flops", "b1_window_flops")
 
     def __init__(self):
         self.conv_kernel_flops = self.conv_library_flops = 0
+        self.b1_head_group_flops = self.b1_window_flops = 0
 
 
-def conv_counter():
-    """Where a Conv2d call's FLOPs go (`count_conv`): the CUDA-graph
-    capture in progress, else the record of the thread's open call while
-    it records (a decompress inside a compress: the compress's), else
-    None."""
+# the name the benchmark's tests construct a capture's sums by
+ConvFlops = FlopSums
+
+
+def flop_counter():
+    """Where a Conv2d call's or a B1 launch's FLOPs go (`count_conv`,
+    `count_b1`): the CUDA-graph capture in progress, else the record of
+    the thread's open call while it records (a decompress inside a
+    compress: the compress's), else None."""
     if _state.capture is not None:
         return _state.capture
     call = _state.call
     return None if call is None else call._root
 
 
+# the name the benchmark's tests call it by
+conv_counter = flop_counter
+
+
 def count_conv(counter, kernel: bool, flops: int):
-    """Adds one Conv2d call's FLOPs to `counter` (`conv_counter()`), under
+    """Adds one Conv2d call's FLOPs to `counter` (`flop_counter()`), under
     its route: the kernel, else the library."""
     if kernel:
         counter.conv_kernel_flops += flops
@@ -257,11 +271,20 @@ def count_conv(counter, kernel: bool, flops: int):
         counter.conv_library_flops += flops
 
 
+def count_b1(counter, head_group: bool, flops: int):
+    """Adds one B1 launch's FLOPs to `counter` (`flop_counter()`), under
+    its design: the head group's, else one block a (window, head)."""
+    if head_group:
+        counter.b1_head_group_flops += flops
+    else:
+        counter.b1_window_flops += flops
+
+
 @contextlib.contextmanager
-def capturing(sums: ConvFlops):
-    """While a CUDA graph is captured: the captured Conv2d calls count into
-    `sums`, in place of any open call's record (a capture computes
-    nothing; each replay adds them, `replayed`)."""
+def capturing(sums: FlopSums):
+    """While a CUDA graph is captured: the captured Conv2d calls and B1
+    launches count into `sums`, in place of any open call's record (a
+    capture computes nothing; each replay adds them, `replayed`)."""
     outer = _state.capture
     _state.capture = sums
     try:
@@ -271,12 +294,12 @@ def capturing(sums: ConvFlops):
 
 
 def replayed(sums):
-    """Adds a captured graph's Conv2d FLOPs (`capturing`'s `ConvFlops`) to
-    the record of the thread's open call, for one replay."""
-    counter = conv_counter()
+    """Adds a captured graph's FLOPs (`capturing`'s `FlopSums`) to the
+    record of the thread's open call, for one replay."""
+    counter = flop_counter()
     if counter is not None:
-        counter.conv_kernel_flops += sums.conv_kernel_flops
-        counter.conv_library_flops += sums.conv_library_flops
+        for name in FlopSums.__slots__:
+            setattr(counter, name, getattr(counter, name) + getattr(sums, name))
 
 
 def profiler_range(name: str):

@@ -207,16 +207,16 @@ def test_records_count_conv_flops_by_route_and_replays(monkeypatch):
     flops = 2 * (2 * 6 * 5 * 7) * (4 * 9)
     with torch.inference_mode():
         layer(x)  # no record open: nothing to count into
-        with tracing.capturing(tracing.ConvFlops()) as captured:
+        with tracing.capturing(tracing.FlopSums()) as captured:
             layer(x)
-            tracing.count_conv(tracing.conv_counter(), True, 1000)
+            tracing.count_conv(tracing.flop_counter(), True, 1000)
     assert (captured.conv_kernel_flops, captured.conv_library_flops) == (
         1000, flops)
 
     def body():
         with torch.inference_mode():
             layer(x)
-            with tracing.capturing(tracing.ConvFlops()):
+            with tracing.capturing(tracing.FlopSums()):
                 layer(x)  # a capture inside the call: not the call's
             tracing.replayed(captured)
             tracing.replayed(captured)

@@ -153,6 +153,52 @@ def test_window_attention_tbc_designs_match_plain(dev, hd, shifted, design):
                                   "head_group"))
 
 
+# B1's FLOP counters by design: through the wrapper, a launch at TBC's
+# analysis geometry (8x8, 32 heads of width 4) counts under the head
+# group, one at its hyper geometry (4x4, 32 heads of width 6) under one
+# block a (window, head), 4 N B H W C each, in f32 and bf16; a graph's
+# capture keeps them apart and its replay adds them to the call's record
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_counts_flops_by_design(dev, monkeypatch, dtype):
+    from stf_tpu_torch.utils import tracing
+
+    def inputs(ws, hd, hw_windows):
+        qkv, bias, labels = _attn_inputs(dev, ws, hd, True, seed=17, nh=32,
+                                         hw_windows=hw_windows)
+        return qkv.to(dtype), bias.to(dtype), labels, ws, hd ** -0.5
+
+    tbc = inputs(8, 4, (4, 6))
+    hyper = inputs(4, 6, (4, 6))
+    flops = {k: 4 * a[3] ** 2 * a[0].numel() // 3 for k, a in
+             (("group", tbc), ("window", hyper))}
+    ac.window_attention(*tbc)  # loads the library outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode():
+        with tracing.capturing(tracing.FlopSums()) as captured, \
+                torch.cuda.graph(graph):
+            ac.window_attention(*tbc)
+    assert (captured.b1_head_group_flops, captured.b1_window_flops) == (
+        flops["group"], 0)
+    monkeypatch.setattr(tracing._profiler, "_is_profiler_enabled", True)
+
+    class Codec:
+        @tracing.traced("encode", "tail")
+        def call(self, probe=None):
+            with torch.inference_mode():
+                ac.window_attention(*tbc)
+                ac.window_attention(*hyper)
+                graph.replay()
+                tracing.replayed(captured)
+            return {"symbols": [torch.zeros(1)]}
+
+    Codec().call()
+    torch.cuda.synchronize()
+    rec = tracing.calls()[-1]
+    assert (rec.b1_head_group_flops, rec.b1_window_flops) == (
+        2 * flops["group"], flops["window"])
+
+
 # the edge cases above at TBC's geometries for both designs, and TBC's own
 # map (stage 2's 64x96 at 8x8: only the last row and column of windows
 # carry mixed labels; the bias x30 makes the -100 penalty decide rows
