@@ -48,7 +48,12 @@ Phases (any failure exits non-zero; nothing is caught):
      to the batch's outputs; timed over graph replays under the table's
      configuration and every other, beside the plain version and cuDNN's
      F.conv2d, with the bound (2 M N K at 165 TFLOP/s, the tensor cores'
-     495 TF32 over three products, or the bytes at 3.35 TB/s);
+     495 TF32 over three products, or the bytes at 3.35 TB/s); then its
+     transposed convolution (`phase_deconv`) at WACNN's four synthesis
+     upsamplers at batch 24 and 1 (DECONV_SHAPES): packing, f64 error no
+     more than DECONV_TOL x cuDNN f32's, batch and configuration bit-equal;
+     timed in both forms beside the plain version and cuDNN's
+     F.conv_transpose2d, with the bound;
   7. the slice end to end: a full-width WACNN (N=192, M=320, 10 slices)
      with seeded random weights compresses and decompresses two 512x768
      uint8 images with coder="lane" (y encoded by B3; fused and per-slice
@@ -218,6 +223,18 @@ CONV_SHAPES = (
     ("batch 1: slice 224->176", 224, 176, 3, 32, 48, 1),
 )
 CONV_TOL = 4  # the kernel's f64 error over cuDNN f32's, at most
+# the transposed convolutions the kernel runs as four sub-pixel phases
+# (WACNN's synthesis, 5x5 stride 2, at a 512x768 image): (label, C_in,
+# C_out, H, W of the input, batch); the first of each form (phases, joint)
+# at each batch a kernels row
+DECONV_SHAPES = tuple(
+    (label, ci, co, h, w, batch) for batch in (24, 1)
+    for label, ci, co, h, w in (
+        ("g_s deconv 320->192 at 32x48", 320, 192, 32, 48),
+        ("g_s deconv 192->192 at 64x96", 192, 192, 64, 96),
+        ("g_s deconv 192->192 at 128x192", 192, 192, 128, 192),
+        ("g_s deconv 192->3 at 256x384", 192, 3, 256, 384)))
+DECONV_TOL = 2.5  # the same for them (tests/test_torch_cuda.py)
 # (model, feature map, channels, window, heads) of every attention geometry
 # at a 512x768 input: WACNN's g_a/g_s blocks, STF's four Swin stages (head
 # width 16 throughout; DYSTF's are the same), TBC's four analysis and
@@ -1072,8 +1089,9 @@ def conv_f64_errors(x, w, b):
 
 
 def phase_conv(dev):
-    """The 3xTF32 convolution at CONV_SHAPES (module docstring, 6b): checks
-    first, then times; returns its kernels rows."""
+    """The 3xTF32 convolution at CONV_SHAPES and its transposed
+    convolution at DECONV_SHAPES (module docstring, 6b): checks first,
+    then times; returns its kernels rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1139,6 +1157,93 @@ def phase_conv(dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms,
                 path="stf" if k == 5 else "cnn"))
+    return rows + phase_deconv(dev, gen, sms)
+
+
+def phase_deconv(dev, gen, sms):
+    """The kernel's transposed convolution at DECONV_SHAPES (module
+    docstring, 6b): its packing the plain version's, its largest error
+    against an f64 transposed convolution no more than DECONV_TOL x cuDNN
+    f32's, each image alone and every tile configuration bit-equal to the
+    batch's outputs; timed over graph replays in the form `deconv_joint`
+    picks and in the other, beside the plain version and cuDNN's
+    F.conv_transpose2d, with the bound. Returns its kernels rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from stf_tpu_torch.layers import conv_core
+
+    def lib(x, w, b):
+        return F.conv_transpose2d(x, w, b, stride=2, padding=2,
+                                  output_padding=1)
+
+    rows, seen = [], set()
+    for label, ci, co, h, w, batch in DECONV_SHAPES:
+        x = torch.randn(batch, ci, h, w, device=dev, generator=gen)
+        wt = torch.randn(ci, co, 5, 5, device=dev, generator=gen) / (
+            co * 25) ** 0.5
+        b = torch.randn(co, device=dev, generator=gen)
+        joint = conv_core.deconv_joint(co)
+        wp = conv_core.deconv_pack_weight(wt)
+        kernels = ([conv_core.joint_kernel(wt)] if joint
+                   else conv_core.phase_kernels(wt))
+        if not torch.equal(wp, torch.cat([
+                conv_core.pack_weight_plain(k, round_small=True).reshape(-1)
+                for k in kernels])):
+            raise AssertionError(f"conv_tc {label}: packed weights differ")
+        y = conv_core.conv_transpose2d_tc(x, wt, b, packed=wp)
+        two = (x[:2], wt, b)
+        want = lib(*(t.double() for t in two))
+        err = (y[:2].double() - want).abs().max().item()
+        lib_err = (lib(*two).double() - want).abs().max().item()
+        del want
+        if err > DECONV_TOL * lib_err:
+            raise AssertionError(f"conv_tc {label}: f64 error {err:.3g} "
+                                 f"(cuDNN f32 {lib_err:.3g})")
+        for i in (0, batch - 1):
+            if not torch.equal(conv_core.conv_transpose2d_tc(
+                    x[i:i + 1], wt, b, packed=wp), y[i:i + 1]):
+                raise AssertionError(f"conv_tc {label}: image {i} alone differs")
+        for c in range(len(conv_core.CONFIGS)):
+            if not torch.equal(conv_core.conv_transpose2d_tc(
+                    x, wt, b, config=c, packed=wp), y):
+                raise AssertionError(f"conv_tc {label}: configuration {c} differs")
+        M = batch * h * w
+        split = conv_core.splits(ci, 3)
+        chosen = (conv_core.tile_config(M, 4 * co, split, sms) if joint
+                  else conv_core.tile_config(M, co, split, sms, gemms=4))
+        iters = 5 if batch == 1 else 3
+        ms = graph_ms(lambda: conv_core.conv_transpose2d_tc(
+            x, wt, b, packed=wp), iters, 3)
+        other_wp = conv_core.deconv_pack_weight(wt, joint=not joint)
+        other_ms = graph_ms(lambda: conv_core.conv_transpose2d_tc(
+            x, wt, b, packed=other_wp, joint=not joint), iters, 3)
+        eager_ms = cuda_ms(lambda: conv_core.conv_transpose2d_tc(
+            x, wt, b, packed=wp), 10)
+        lib_ms = graph_ms(lambda: lib(x, wt, b), iters, 3)
+        plain_ms = graph_ms(lambda: conv_core.conv_transpose2d_tc_plain(
+            x, wt, b), 2, 2)
+        flops = 2 * M * ci * co * 25
+        nbytes = 4 * (x.numel() + wt.numel() + b.numel() + 4 * M * co)
+        bound_ms, bound_by = bound(nbytes, flops, TF32X3_OPS_PER_S)
+        form = "joint" if joint else "phases"
+        print(f"conv_tc {label} batch {batch} ({form}, configuration "
+              f"{chosen}, split {split}): kernel {ms:.4f} ms = "
+              f"{flops / ms / 1e9:.1f} TFLOP/s (eager per call {eager_ms:.4f} "
+              f"ms; the other form {other_ms:.4f} ms); cuDNN "
+              f"F.conv_transpose2d {lib_ms:.4f} ms = "
+              f"{flops / lib_ms / 1e9:.1f} TFLOP/s ({lib_ms / ms:.2f}x); "
+              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}%); f64 error {err:.3g} (cuDNN f32 "
+              f"{lib_err:.3g})")
+        if (joint, batch) not in seen:
+            seen.add((joint, batch))
+            rows.append(dict(
+                name=conv_core.deconv_launch_key(joint), route="cuda",
+                source="stf_tpu_torch/csrc/conv_tc.cu", replaces=None,
+                shape=f"{label} batch {batch}", launches=None,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, path="cnn"))
     return rows
 
 

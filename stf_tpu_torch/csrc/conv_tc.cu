@@ -74,6 +74,32 @@
 // (each a share of the tile). A one-image map (M = 1,536 at 32x48) then
 // still fills the card.
 //
+// Transposed convolution (`conv_tc_deconv_kernel`). The synthesis
+// transforms' 5x5 stride-2 upsamplers (padding 2, output padding 1: exact
+// 2x) also replace no TPU kernel: the JAX package leaves them to XLA's
+// conv_transpose, and the port left them to cuDNN's backward-data kernels
+// (dgrad2d, ~16 TFLOP/s at batch 24 and ~5 at batch 1 on an H100). By
+// sub-pixel decomposition, output row 2m + p takes the even taps {0, 2, 4}
+// of the kernel on input rows m + 1, m, m - 1 (p = 0) or the odd taps
+// {1, 3} on rows m + 1, m (p = 1), and columns alike. So each output
+// phase (py, px) is a stride-1 correlation of x with a (3 - py) x (3 - px)
+// sub-kernel: the taps (i, j) of a 3x3 window (padding 1) with i >= py and
+// j >= px. The four phases use the 25 taps once each. In the PHASES form a
+// block computes one phase's tile of a GEMM with M = B*H*W input pixels,
+// N = C_out and K = its 9, 6, 6 or 4 taps x Cp, so no zero tap is
+// multiplied; the packing (`conv_core.deconv_pack_weight`) holds the four
+// phases' B operands one after another. The epilogue stores each output
+// to (2h + py, 2w + px) with its bias: no pixel shuffle, no intermediate.
+// Bound: operations (165 TFLOP/s) at the synthesis's widths. Where C_out
+// is small (192 -> 3: ~38 flops a byte of x, under the card's 49) bytes
+// bound it, and in practice the loader's gathers: the JOINT form puts the
+// four phases in one N tile (N = 4 C_out, column 4 co + 2 py + px, over
+// the whole 3x3 window, the absent taps' weights zero), so x is gathered
+// once, not once a phase.
+// `conv_core.deconv_joint` picks the form from C_out alone. Split K, the
+// stage order and the fresh accumulator a stage are the convolution's:
+// every output sums in an order fixed by C_in and its phase's taps.
+//
 // Lockstep. No atomics, and no order that depends on M: every output is
 // the rank-order sum of its S partial sums, each a run of k8 steps in
 // order (the three products of a step small terms first, a stage's
@@ -137,6 +163,30 @@ __device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& big,
   small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
 }
 
+// What a block computes: a convolution's tile, one phase's tile of a
+// transposed convolution, or a tile of all four phases at once (see
+// "Transposed convolution" above).
+enum Mode : int { CONV = 0, PHASES = 1, JOINT = 2 };
+
+// Rounds f32 bits to TF32 (ties away from zero, as cvt.rna).
+__device__ __forceinline__ uint32_t round_tf32(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// The A operand's split: truncated for the convolution; in the transposed
+// modes big and small both rounded to TF32, so that the tensor core reads
+// the small part exactly (see "Transposed convolution").
+template <int MODE>
+__device__ __forceinline__ void split_a(float x, uint32_t& big,
+                                        uint32_t& small) {
+  if (MODE == CONV) {
+    split_tf32_trunc(x, big, small);
+  } else {
+    big = round_tf32(__float_as_uint(x));
+    small = round_tf32(__float_as_uint(x - __uint_as_float(big)));
+  }
+}
+
 // d += a . b on one m16n8k8 TF32 tile, f32 accumulation. Not volatile:
 // the compiler may interleave independent tiles' chains.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -198,15 +248,23 @@ struct Tile {
   X(3, 128, 16, 32, 16, 4, 2)   \
   X(4, 128, 8, 32, 8, 4, 2)
 
-template <class T, int KS>
-__global__ void __launch_bounds__(T::THREADS, T::MINB)
-    conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                   const float* __restrict__ bias, float* __restrict__ y,
-                   int C, int Cp, int H, int W, int N, int M, int n_tiles,
-                   int splits, int vec_a) {
+// The taps before phase p's in the PHASES packing: 0, 9, 15, 21.
+__device__ __forceinline__ int phase_tap_offset(int p) {
+  return p ? 6 * p + 3 : 0;
+}
+
+// One block's tile. KS is 3 in both transposed modes (the 3x3 window of
+// padding 1 that holds every phase's taps); there `N` is C_out (PHASES)
+// or 4 C_out (JOINT), and y is (B, C_out, 2H, 2W).
+template <class T, int KS, int MODE>
+__device__ __forceinline__ void conv_tc_tile(
+    const float* __restrict__ x, const float* __restrict__ wp,
+    const float* __restrict__ bias, float* __restrict__ y, int C, int Cp,
+    int H, int W, int N, int M, int n_tiles, int splits, int vec_a) {
   constexpr int PAD = KS / 2, KK = KS * KS;
   constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
   constexpr int LDA = T::LDA, LDB = T::LDB, THREADS = T::THREADS;
+  static_assert(MODE == CONV || KS == 3, "transposed modes use the 3x3 window");
   extern __shared__ __align__(16) float smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -215,9 +273,14 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
   const int tile = (int)(blockIdx.x / splits);
   const int rank = (int)(blockIdx.x % splits);  // in its cluster
   const int n0 = (tile % n_tiles) * BN;
-  const int m0 = (tile / n_tiles) * BM;
+  // PHASES: tiles run (M tile, phase, N tile), N tiles fastest
+  const int phase = MODE == PHASES ? (tile / n_tiles) & 3 : 0;
+  const int m0 = (MODE == PHASES ? tile / n_tiles >> 2 : tile / n_tiles) * BM;
+  const int py = phase >> 1, px = phase & 1;
   const int HW = H * W;
-  const int K = KK * Cp;
+  // PHASES: this phase's (3 - py) x (3 - px) taps and its packed operand
+  const int K = (MODE == PHASES ? (3 - py) * (3 - px) : KK) * Cp;
+  if (MODE == PHASES) wp += (size_t)N * 2 * Cp * phase_tap_offset(phase);
   const int KT = (K + BK - 1) / BK;
   const int per = (KT + splits - 1) / splits;
   const int kt_begin = min(KT, rank * per);
@@ -244,8 +307,19 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
         taps |= 1u << tap;
   }
   // (tap, channel) of the next stage's first column: the stages load in
-  // order, so it advances by BK a load, without a division
+  // order, so it advances by BK a load, without a division. PHASES keeps
+  // the tap as its index in the 3x3 window: the phase's taps are those
+  // with row >= py and column >= px, so the next after a row's last
+  // (column 2) skips px columns.
   int ld_tap = kt_begin * BK / Cp, ld_c = kt_begin * BK - ld_tap * Cp;
+  if (MODE == PHASES)
+    ld_tap = (py + ld_tap / (3 - px)) * 3 + px + ld_tap % (3 - px);
+  auto next_tap = [&](int& tap) {
+    if (MODE == PHASES && tap % 3 == 2)
+      tap += 1 + px;
+    else
+      ++tap;
+  };
 
   auto load_stage = [&](int kt, int stage) {
     float* As = smem + stage * T::STAGE_FLOATS;
@@ -267,7 +341,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
           c += 8;
           if (c >= Cp) {  // Cp >= 8: one tap at most
             c -= Cp;
-            ++tap;
+            next_tap(tap);
           }
         }
         // taps past the last (tap >= KK, the padded tail) have no bit
@@ -284,7 +358,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
       c += 8 + BK - BK / 8 * 8;
       if (c >= Cp) {
         c -= Cp;
-        ++tap;
+        next_tap(tap);
       }
       ld_tap = tap;
       ld_c = c;
@@ -346,10 +420,10 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
       for (int mt = 0; mt < MT; ++mt) {
         const float* ap = As + (kk + t) * LDA + wm * T::WM + mt * 16 + g;
         uint32_t ab[4], as[4];
-        split_tf32_trunc(ap[0], ab[0], as[0]);
-        split_tf32_trunc(ap[8], ab[1], as[1]);
-        split_tf32_trunc(ap[4 * LDA], ab[2], as[2]);
-        split_tf32_trunc(ap[4 * LDA + 8], ab[3], as[3]);
+        split_a<MODE>(ap[0], ab[0], as[0]);
+        split_a<MODE>(ap[8], ab[1], as[1]);
+        split_a<MODE>(ap[4 * LDA], ab[2], as[2]);
+        split_a<MODE>(ap[4 * LDA + 8], ab[3], as[3]);
         // the NT tiles' chains interleaved
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -382,7 +456,20 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
     const int n = n0 + wn * T::WN + nt * 8 + 2 * t + (r & 1);
     if (m < M && n < N) {
       const int b = m / HW, p = m - b * HW;
-      y[((size_t)b * N + n) * HW + p] = v + (bias != nullptr ? bias[n] : 0.0f);
+      if (MODE == CONV) {
+        y[((size_t)b * N + n) * HW + p] =
+            v + (bias != nullptr ? bias[n] : 0.0f);
+      } else {
+        // input pixel (h, w) of phase (oy, ox) -> output (2h + oy, 2w + ox)
+        // of channel co: the JOINT form's column n is 4 co + 2 oy + ox
+        const int h = p / W, w = p - h * W;
+        const int co = MODE == JOINT ? n >> 2 : n;
+        const int oy = MODE == JOINT ? (n >> 1) & 1 : py;
+        const int ox = MODE == JOINT ? n & 1 : px;
+        const int c_out = MODE == JOINT ? N >> 2 : N;
+        y[((size_t)b * c_out + co) * 4 * HW + (size_t)(2 * h + oy) * 2 * W +
+          2 * w + ox] = v + (bias != nullptr ? bias[co] : 0.0f);
+      }
     }
   };
 
@@ -418,13 +505,37 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB)
   cluster.sync();  // no block leaves while another reads its partial sums
 }
 
+template <class T, int KS>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+    conv_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+                   const float* __restrict__ bias, float* __restrict__ y,
+                   int C, int Cp, int H, int W, int N, int M, int n_tiles,
+                   int splits, int vec_a) {
+  conv_tc_tile<T, KS, CONV>(x, wp, bias, y, C, Cp, H, W, N, M, n_tiles,
+                            splits, vec_a);
+}
+
+template <class T, int MODE>
+__global__ void __launch_bounds__(T::THREADS, T::MINB)
+    conv_tc_deconv_kernel(const float* __restrict__ x,
+                          const float* __restrict__ wp,
+                          const float* __restrict__ bias,
+                          float* __restrict__ y, int C, int Cp, int H, int W,
+                          int N, int M, int n_tiles, int splits) {
+  conv_tc_tile<T, 3, MODE>(x, wp, bias, y, C, Cp, H, W, N, M, n_tiles,
+                           splits, 0);
+}
+
 // Column k = tap * Cp + c of row n is split_tf32(w[n, c, tap]) (zero for
 // C <= c < Cp); each group of 8 columns is stored as 16 floats, big parts
 // then small parts, column j at 2 (j % 4) + j / 4 of its half: lane t of
 // an mma reads its operand pair (columns t and t + 4) as one float2.
+// With `round_small` the small part is rounded to TF32 too (the
+// transposed modes' packing).
 __global__ void conv_tc_pack_kernel(const float* __restrict__ w,
                                     float* __restrict__ wp, int C, int Cp,
-                                    int KK, long long total) {
+                                    int KK, long long total,
+                                    int round_small) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int c = (int)(i % Cp);
@@ -433,28 +544,23 @@ __global__ void conv_tc_pack_kernel(const float* __restrict__ w,
   const long long n = q / KK;
   uint32_t big = 0, small = 0;
   if (c < C) split_tf32(w[(n * C + c) * KK + tap], big, small);
+  if (round_small) small = round_tf32(small);
   const int j = (int)(i % 8);
   float* out = wp + (i - j) * 2 + 2 * (j % 4) + j / 4;
   out[0] = __uint_as_float(big);
   out[8] = __uint_as_float(small);
 }
 
-template <class T, int KS>
-int launch(const float* x, const float* wp, const float* bias, float* y,
-           int B, int C, int H, int W, int N, int splits,
-           cudaStream_t stream) {
-  auto kernel = conv_tc_kernel<T, KS>;
+// Launches `kernel` on `blocks` blocks in clusters of `splits` along x.
+template <class T, class Kernel, class... Args>
+int launch_clusters(Kernel kernel, long long blocks, int splits,
+                    cudaStream_t stream, Args... args) {
   if (T::SMEM > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
   }
-  const int M = B * H * W, Cp = (C + 7) / 8 * 8;
-  const int n_tiles = (N + T::BN - 1) / T::BN;
-  const long long blocks =
-      (long long)splits * n_tiles * ((M + T::BM - 1) / T::BM);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int vec_a = KS == 1 && (H * W) % 4 == 0 && (uintptr_t)x % 16 == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(T::THREADS);
@@ -467,10 +573,23 @@ int launch(const float* x, const float* wp, const float* bias, float* y,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, wp, bias, y, C, Cp, H,
-                                     W, N, M, n_tiles, splits, vec_a);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <class T, int KS>
+int launch(const float* x, const float* wp, const float* bias, float* y,
+           int B, int C, int H, int W, int N, int splits,
+           cudaStream_t stream) {
+  const int M = B * H * W, Cp = (C + 7) / 8 * 8;
+  const int n_tiles = (N + T::BN - 1) / T::BN;
+  const long long blocks =
+      (long long)splits * n_tiles * ((M + T::BM - 1) / T::BM);
+  const int vec_a = KS == 1 && (H * W) % 4 == 0 && (uintptr_t)x % 16 == 0;
+  return launch_clusters<T>(conv_tc_kernel<T, KS>, blocks, splits, stream, x,
+                            wp, bias, y, C, Cp, H, W, N, M, n_tiles, splits,
+                            vec_a);
 }
 
 template <class T>
@@ -483,6 +602,23 @@ int launch_ks(const float* x, const float* wp, const float* bias, float* y,
     case 5: return launch<T, 5>(x, wp, bias, y, B, C, H, W, N, splits, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// N is C_out; the JOINT form's GEMM has 4 C_out columns, the PHASES form
+// four GEMMs of C_out.
+template <class T>
+int launch_deconv(const float* x, const float* wp, const float* bias,
+                  float* y, int B, int C, int H, int W, int N, int joint,
+                  int splits, cudaStream_t stream) {
+  const int M = B * H * W, Cp = (C + 7) / 8 * 8;
+  const int n_gemm = joint ? 4 * N : N;
+  const int n_tiles = (n_gemm + T::BN - 1) / T::BN;
+  const long long blocks = (long long)splits * n_tiles *
+                           ((M + T::BM - 1) / T::BM) * (joint ? 1 : 4);
+  auto kernel = joint ? conv_tc_deconv_kernel<T, JOINT>
+                      : conv_tc_deconv_kernel<T, PHASES>;
+  return launch_clusters<T>(kernel, blocks, splits, stream, x, wp, bias, y,
+                            C, Cp, H, W, n_gemm, M, n_tiles, splits);
 }
 
 }  // namespace
@@ -498,19 +634,20 @@ int stf_conv_tc_configs() {
   return n;
 }
 
-// w: (N, C, ks, ks) f32 -> wp: (N, ks * ks * Cp, 2) f32, Cp = C rounded up
-// to a multiple of 8 (the kernel's B operand, split); contiguous. Launches on
-// `stream`, returns cudaGetLastError().
+// w: (N, C, taps) f32 (a kernel's taps in row-major order) -> wp: (N, taps
+// * Cp, 2) f32, Cp = C rounded up to a multiple of 8 (the kernel's B
+// operand, split; the small parts rounded to TF32 with `round_small`);
+// contiguous. Launches on `stream`, returns cudaGetLastError().
 int stf_conv_tc_pack(const void* w, void* wp, int32_t N, int32_t C,
-                     int32_t ks, void* stream) {
-  const int Cp = (C + 7) / 8 * 8, KK = ks * ks;
+                     int32_t taps, int32_t round_small, void* stream) {
+  const int Cp = (C + 7) / 8 * 8, KK = taps;
   const long long total = (long long)N * KK * Cp;
-  if (N < 1 || C < 1 || ks < 1 || total >= 0x7fffffffLL)
+  if (N < 1 || C < 1 || taps < 1 || total >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
   conv_tc_pack_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
                         0, (cudaStream_t)stream>>>(
-      (const float*)w, (float*)wp, C, Cp, KK, total);
+      (const float*)w, (float*)wp, C, Cp, KK, total, round_small);
   return (int)cudaGetLastError();
 }
 
@@ -541,6 +678,39 @@ int stf_conv_tc(const void* x, const void* wp, const void* bias, void* y,
                                                    H, W, N, ks, splits, st);
   CONV_TC_CONFIGS(CONV_TC_CASE)
 #undef CONV_TC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// x: (B, C, H, W) f32; wp: `conv_core.deconv_pack_weight`'s packing of the
+// (C, N, 5, 5) weights, in the JOINT form if `joint`, else PHASES; bias:
+// (N,) f32 or null; y: (B, N, 2H, 2W) f32; x and wp 16-byte aligned, all
+// contiguous. y = conv_transpose2d(x, w, stride 2, padding 2, output
+// padding 1) + bias with tile configuration `config`, K split over
+// `splits` blocks (1-8). Launches on `stream`, returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported configuration or split, a
+// misaligned pointer, or x or the packed weights of 2^31 elements or
+// more).
+int stf_conv_tc_deconv(const void* x, const void* wp, const void* bias,
+                       void* y, int32_t B, int32_t C, int32_t H, int32_t W,
+                       int32_t N, int32_t joint, int32_t config,
+                       int32_t splits, void* stream) {
+  if ((uintptr_t)x % 16 || (uintptr_t)wp % 16 || (uintptr_t)y % 4 ||
+      (uintptr_t)bias % 4 || B < 1 || C < 1 || H < 1 || W < 1 || N < 1 ||
+      splits < 1 || splits > 8 || (long long)B * H * W > 0x7fffff00LL ||
+      (long long)B * C * H * W >= 0x7fffffffLL ||
+      (long long)N * (C + 7) * 36 * 2 >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  const float* wf = (const float*)wp;
+  const float* bf = (const float*)bias;
+  float* yf = (float*)y;
+  cudaStream_t st = (cudaStream_t)stream;
+#define CONV_TC_DECONV_CASE(I, BM, BN, WM, WN, ST, MB)                     \
+  if (config == I)                                                        \
+    return launch_deconv<Tile<BM, BN, WM, WN, ST, MB>>(                   \
+        xf, wf, bf, yf, B, C, H, W, N, joint, splits, st);
+  CONV_TC_CONFIGS(CONV_TC_DECONV_CASE)
+#undef CONV_TC_DECONV_CASE
   return (int)cudaErrorInvalidValue;
 }
 

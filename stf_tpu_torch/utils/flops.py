@@ -15,9 +15,10 @@ x window tokens x channels (q k^T and P v). On the card its launch is
 invisible to the counter; on the CPU its plain version's two batched
 matmuls, which the counter sees at exactly that count, are taken out of
 `aten.bmm`, so both devices count the same. The 3xTF32 convolution
-kernel (`layers.conv_core`, the card's f32 stride-1 convolutions outside
-autograd) is invisible to the counter too: its calls are counted from
-their shapes, as the counter counts a convolution, under "convolution".
+kernel (`layers.conv_core`, the card's f32 stride-1 convolutions and 5x5
+stride-2 transposed convolutions outside autograd) is invisible to the
+counter too: its calls are counted from their shapes, as the counter
+counts a convolution, under "convolution".
 
 The JAX package counts with XLA's `cost_analysis` of the compiled
 forward, which counts other things (PERF.md has the gap by op).
@@ -56,7 +57,7 @@ def model_flops(model: torch.nn.Module,
     `input_shape`, on `device` (None: the model's own)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from ..layers.conv import Conv2d
+    from ..layers.conv import Conv2d, ConvTranspose2d
     from ..layers.win_attention import WindowAttention
 
     if device is not None:
@@ -71,10 +72,16 @@ def model_flops(model: torch.nn.Module,
         if mod.launches(args[0]):
             conv_tc.append(2 * out.numel() * mod.weight[0].numel())
 
+    def count_deconv_tc(mod, args, out):
+        if mod.launches(args[0]):  # over the input's pixels
+            conv_tc.append(2 * args[0].numel() * mod.weight[0].numel())
+
     hooks = [m.register_forward_hook(count_b1) for m in model.modules()
              if isinstance(m, WindowAttention)]
     hooks += [m.register_forward_hook(count_conv_tc) for m in model.modules()
               if isinstance(m, Conv2d)]
+    hooks += [m.register_forward_hook(count_deconv_tc)
+              for m in model.modules() if isinstance(m, ConvTranspose2d)]
     counter = FlopCounterMode(display=False)
     was_training = model.training
     model.eval()

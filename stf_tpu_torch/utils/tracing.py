@@ -22,7 +22,9 @@ and end on `time.perf_counter_ns`), the outcome of its fused path (one of
 path), and on encode the lane stream's framing bytes, and the stream bytes
 and images of its result. It also sums the FLOPs (2 M N K) of the port's
 `Conv2d` calls by route: `conv_kernel_flops` those that launched the
-3xTF32 kernel, `conv_library_flops` those that took `F.conv2d`; and the
+3xTF32 kernel, `conv_library_flops` those that took `F.conv2d`; the
+FLOPs (2 x input pixels x C_in x C_out x taps) of its `ConvTranspose2d`
+calls likewise, `deconv_kernel_flops` and `deconv_library_flops`; and the
 FLOPs (4 N B H W C, N tokens a window) of kernel B1's launches by design:
 `b1_head_group_flops` the head group's, `b1_window_flops` one block a
 (window, head). A CUDA graph's capture keeps the sums of the calls it
@@ -115,6 +117,7 @@ class Call:
             self.framing_bytes = 0
             self.y_bytes = self.z_bytes = self.images = 0
             self.conv_kernel_flops = self.conv_library_flops = 0
+            self.deconv_kernel_flops = self.deconv_library_flops = 0
             self.b1_head_group_flops = self.b1_window_flops = 0
             self._stack = []  # indexes of the open spans, innermost last
         self._open(first, "stage")
@@ -232,14 +235,17 @@ def outcome(name: str):
 
 
 class FlopSums:
-    """The FLOPs counted while a CUDA graph was captured: Conv2d's by
-    route and B1's by design (the names of a `Call`'s sums)."""
+    """The FLOPs counted while a CUDA graph was captured: Conv2d's and
+    ConvTranspose2d's by route and B1's by design (the names of a `Call`'s
+    sums)."""
 
     __slots__ = ("conv_kernel_flops", "conv_library_flops",
+                 "deconv_kernel_flops", "deconv_library_flops",
                  "b1_head_group_flops", "b1_window_flops")
 
     def __init__(self):
         self.conv_kernel_flops = self.conv_library_flops = 0
+        self.deconv_kernel_flops = self.deconv_library_flops = 0
         self.b1_head_group_flops = self.b1_window_flops = 0
 
 
@@ -248,8 +254,9 @@ ConvFlops = FlopSums
 
 
 def flop_counter():
-    """Where a Conv2d call's or a B1 launch's FLOPs go (`count_conv`,
-    `count_b1`): the CUDA-graph capture in progress, else the record of
+    """Where a Conv2d or ConvTranspose2d call's or a B1 launch's FLOPs go
+    (`count_conv`, `count_deconv`, `count_b1`): the CUDA-graph capture in
+    progress, else the record of
     the thread's open call while it records (a decompress inside a
     compress: the compress's), else None."""
     if _state.capture is not None:
@@ -271,6 +278,15 @@ def count_conv(counter, kernel: bool, flops: int):
         counter.conv_library_flops += flops
 
 
+def count_deconv(counter, kernel: bool, flops: int):
+    """Adds one ConvTranspose2d call's FLOPs to `counter`
+    (`flop_counter()`), under its route: the kernel, else the library."""
+    if kernel:
+        counter.deconv_kernel_flops += flops
+    else:
+        counter.deconv_library_flops += flops
+
+
 def count_b1(counter, head_group: bool, flops: int):
     """Adds one B1 launch's FLOPs to `counter` (`flop_counter()`), under
     its design: the head group's, else one block a (window, head)."""
@@ -282,8 +298,8 @@ def count_b1(counter, head_group: bool, flops: int):
 
 @contextlib.contextmanager
 def capturing(sums: FlopSums):
-    """While a CUDA graph is captured: the captured Conv2d calls and B1
-    launches count into `sums`, in place of any open call's record (a
+    """While a CUDA graph is captured: the captured Conv2d and
+    ConvTranspose2d calls and B1 launches count into `sums`, in place of any open call's record (a
     capture computes nothing; each replay adds them, `replayed`)."""
     outer = _state.capture
     _state.capture = sums

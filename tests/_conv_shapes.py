@@ -41,3 +41,23 @@ def routed(transposed=False):
     if transposed:
         out = [(ci, co, k, w, h) for ci, co, k, h, w in out]
     return out
+
+# The 5x5 stride-2 transposed convolutions (`layers.conv.ConvTranspose2d`)
+# routed to the kernel's sub-pixel phases at a 512x768 image: (C_in, C_out,
+# H, W) of each call's input. WACNN's synthesis (CC's and CC_GD's at full
+# width are the same), CC's hyper synthesis, and a pruned CC_GD's odd
+# widths, C_out < 8 and 11 among them (the joint form).
+DECONV_WACNN = [(320, 192, 32, 48), (192, 192, 64, 96), (192, 192, 128, 192),
+                (192, 3, 256, 384)]
+DECONV_CC = [(192, 192, 8, 12), (192, 256, 16, 24)]
+DECONV_ODD = [(61, 37, 8, 12), (37, 203, 16, 24), (45, 11, 16, 24),
+              (29, 5, 19, 23)]
+
+
+def routed_transposed(transposed=False):
+    """Every transposed convolution above, at 512x768 or (`transposed`)
+    768x512."""
+    out = DECONV_WACNN + DECONV_CC + DECONV_ODD
+    if transposed:
+        out = [(ci, co, w, h) for ci, co, h, w in out]
+    return out

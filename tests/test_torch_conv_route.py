@@ -224,3 +224,173 @@ def test_records_count_conv_flops_by_route_and_replays(monkeypatch):
     rec = _record(monkeypatch, "decode", body)
     assert rec.conv_kernel_flops == 2000
     assert rec.conv_library_flops == flops + 2 * flops
+
+
+# -- the transposed convolution's sub-pixel phases ---------------------------
+
+
+def _deconv_call(device=CUDA, dtype=torch.float32, k=5, stride=2, padding=2,
+                 output_padding=1, dilation=1, groups=1, padding_mode="zeros",
+                 x_dim=4, bias_dtype=torch.float32):
+    x = _Tensor(device=device, dtype=dtype, shape=(2, 8, 16, 16)[:x_dim])
+    w = _Tensor(device=device, dtype=dtype, shape=(8, 4 // groups, k, k))
+    b = None if bias_dtype is None else _Tensor(device=device,
+                                                dtype=bias_dtype, shape=(4,))
+    return (x, w, b, (stride, stride), (padding, padding),
+            (output_padding, output_padding), (dilation, dilation), groups,
+            padding_mode)
+
+
+DECONV_ROUTES = {
+    "f32_k5_s2": (dict(), True),
+    "no_bias": (dict(bias_dtype=None), True),
+    "cpu": (dict(device=torch.device("cpu")), False),
+    "bf16": (dict(dtype=torch.bfloat16, bias_dtype=torch.bfloat16), False),
+    "stride1": (dict(stride=1, output_padding=0), False),
+    "k3": (dict(k=3, padding=1), False),
+    "padding1": (dict(padding=1), False),
+    "output_padding0": (dict(output_padding=0), False),
+    "groups2": (dict(groups=2), False),
+    "dilation2": (dict(dilation=2), False),
+    "x_3d": (dict(x_dim=3), False),
+}
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("case", list(DECONV_ROUTES))
+def test_transposed_route_takes_the_kernel_only_for_the_2x_upsampler(case,
+                                                                     grad):
+    """The kernel's phases take f32 CUDA calls of a 5x5 weight at stride 2,
+    padding 2, output padding 1, one group, with grad mode off; CPU
+    tensors, bf16, other geometries and every call autograd records take
+    F.conv_transpose2d."""
+    kwargs, want = DECONV_ROUTES[case]
+    with torch.set_grad_enabled(grad):
+        got = conv_core.routes_transposed(*_deconv_call(**kwargs))
+    assert got == (want and not grad)
+
+
+def test_conv_transpose2d_is_nn_conv_transpose2d_on_the_cpu():
+    """`ConvTranspose2d`, which `deconv` builds, keeps nn.ConvTranspose2d's
+    parameters and state_dict keys and, on CPU tensors, computes
+    F.conv_transpose2d, with an `output_size` too."""
+    torch.manual_seed(0)
+    ref = nn.ConvTranspose2d(6, 5, 5, stride=2, padding=2, output_padding=1)
+    ours = conv_mod.deconv(6, 5)
+    assert type(ours) is conv_mod.ConvTranspose2d
+    assert {k: v.shape for k, v in ours.state_dict().items()} == {
+        k: v.shape for k, v in ref.state_dict().items()}
+    ours.load_state_dict(ref.state_dict())
+    x = torch.randn(2, 6, 5, 7)
+    with torch.inference_mode():
+        assert not ours.launches(x)
+        assert torch.equal(ours(x), ref(x))
+        assert torch.equal(ours(x, output_size=(9, 13)),
+                           ref(x, output_size=(9, 13)))
+
+
+# (C_in, C_out) of WACNN's four synthesis layers, CC's hyper synthesis and
+# a pruned CC_GD's odd widths
+DECONV_WIDTHS = [(320, 192), (192, 192), (192, 3), (192, 256), (61, 37),
+                 (29, 5), (45, 11)]
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["phases", "joint"])
+@pytest.mark.parametrize("c_in,c_out", DECONV_WIDTHS, ids=str)
+def test_phase_decomposition_is_the_transposed_convolution(c_in, c_out,
+                                                           joint):
+    """The four sub-pixel phases (`conv_transpose2d_phases`: each phase's
+    correlation written to its pixels, or the joint form's one correlation
+    pixel-shuffled) equal F.conv_transpose2d (stride 2, padding 2, output
+    padding 1) in f64 on a small map, at the models' widths."""
+    rng = np.random.default_rng(c_in * 1000 + c_out)
+    x = torch.from_numpy(rng.standard_normal((2, c_in, 3, 4)))
+    w = torch.from_numpy(rng.standard_normal((c_in, c_out, 5, 5)))
+    b = torch.from_numpy(rng.standard_normal(c_out))
+    want = F.conv_transpose2d(x, w, b, stride=2, padding=2, output_padding=1)
+    got = conv_core.conv_transpose2d_phases(x, w, b, joint=joint)
+    assert got.shape == want.shape == (2, c_out, 6, 8)
+    assert (got - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+
+
+def test_phases_use_each_tap_once_and_the_joint_form_zeros_the_rest():
+    """The phases' kernels hold the 25 taps once each (9 + 6 + 6 + 4); the
+    joint kernel holds them at the window's rows >= py and columns >= px of
+    row 4 co + 2 py + px, zero elsewhere (11 zeros a (co, c_in) pair); its
+    packing is `pack_weight_plain` of it, and the phases' packings follow
+    one another in `deconv_pack_weight`'s order."""
+    w = torch.arange(1, 2 * 3 * 25 + 1, dtype=torch.float32).reshape(2, 3, 5, 5)
+    kernels = conv_core.phase_kernels(w)
+    assert [k.shape[2] * k.shape[3] for k in kernels] == list(
+        conv_core.PHASE_TAPS) == [9, 6, 6, 4]
+    taps = torch.cat([k.reshape(-1) for k in kernels])
+    assert torch.equal(taps.sort().values, w.reshape(-1).sort().values)
+    # phase (0, 1), tap (0, 0): x at (h - 1, w), kernel tap (4, 3)
+    assert kernels[1][2, 1, 0, 0] == w[1, 2, 4, 3]
+    joint = conv_core.joint_kernel(w).reshape(3, 4, 2, 3, 3)
+    assert int((joint == 0).sum()) == 11 * 3 * 2
+    assert torch.equal(joint[:, 3, :, 1:, 1:], kernels[3].reshape(3, 2, 2, 2))
+
+
+@pytest.mark.parametrize("c_out,want", [(3, True), (5, True), (11, True),
+                                        (192, False), (256, False),
+                                        (37, False), (203, False)])
+def test_deconv_form_follows_c_out_alone(c_out, want):
+    """The joint form (x gathered once, 4 C_out columns over all 9 taps)
+    where C_out is small, WACNN's 3-channel output among them; one GEMM a
+    phase over its own taps at the synthesis's widths: the cost model's
+    choice, from C_out alone."""
+    assert conv_core.deconv_joint(c_out) is want
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["phases", "joint"])
+def test_deconv_3xtf32_plain_is_f32_grade(joint):
+    """The kernel's arithmetic on the phases (`conv_transpose2d_tc_plain`)
+    against an f64 transposed convolution: within 4x the error of an f32
+    F.conv_transpose2d at the same inputs; a single TF32 pass is at least
+    100x farther."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 6, 5))).float()
+    w = torch.from_numpy(rng.standard_normal((40, 12, 5, 5)) / 120).float()
+    b = torch.from_numpy(rng.standard_normal(12)).float()
+
+    def err(y):
+        want = F.conv_transpose2d(x.double(), w.double(), b.double(),
+                                  stride=2, padding=2, output_padding=1)
+        return (y.double() - want).abs().max().item()
+
+    f32 = err(F.conv_transpose2d(x, w, b, stride=2, padding=2,
+                                 output_padding=1))
+    three = err(conv_core.conv_transpose2d_tc_plain(x, w, b, joint=joint))
+    one = err(conv_core.conv_transpose2d_tc_plain(x, w, b, joint=joint,
+                                                  passes=1))
+    assert three <= 4 * f32, (three, f32)
+    assert one >= 100 * f32, (one, f32)
+
+
+def test_records_count_deconv_flops_by_route_and_replays(monkeypatch):
+    """A recorded call sums 2 x input pixels x C_in x C_out x 25 of its
+    ConvTranspose2d calls, apart from Conv2d's: CPU calls under the
+    library; a graph's capture keeps its calls' sums and each replay adds
+    them."""
+    layer = conv_mod.deconv(4, 6)
+    x = torch.zeros(2, 4, 5, 7)
+    flops = 2 * (2 * 5 * 7) * 4 * 6 * 25
+    with torch.inference_mode():
+        layer(x)  # no record open: nothing to count into
+        with tracing.capturing(tracing.FlopSums()) as captured:
+            layer(x)
+            tracing.count_deconv(tracing.flop_counter(), True, 1000)
+    assert (captured.deconv_kernel_flops, captured.deconv_library_flops,
+            captured.conv_library_flops) == (1000, flops, 0)
+
+    def body():
+        with torch.inference_mode():
+            layer(x)
+            tracing.replayed(captured)
+            tracing.replayed(captured)
+
+    rec = _record(monkeypatch, "decode", body)
+    assert rec.deconv_kernel_flops == 2000
+    assert rec.deconv_library_flops == flops + 2 * flops
+    assert rec.conv_kernel_flops == rec.conv_library_flops == 0

@@ -1625,3 +1625,239 @@ def test_round_trip_through_the_conv_kernel(dev, name, batch):
         assert torch.equal(f, s) and torch.equal(w, s)
     assert torch.equal(fused["x_hat"], walk["x_hat"])
     assert enc_launches > 0 and dec_launches > 0, (enc_launches, dec_launches)
+
+
+# -- the kernel's transposed convolution (`conv_core.conv_transpose2d_tc`) ---
+
+
+def _deconv_inputs(dev, ci, co, h, w, batch, seed=0):
+    """x (batch, ci, h, w), a (ci, co, 5, 5) weight at torch's default
+    scale for a transposed convolution, and a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, ci, h, w, device=dev, generator=g)
+    wt = torch.randn(ci, co, 5, 5, device=dev, generator=g) / (co * 25) ** 0.5
+    return x, wt, torch.randn(co, device=dev, generator=g)
+
+
+# the kernel's f64 error over cuDNN f32's, at most: 3xTF32 loses ~2^-21 of
+# each product where cuDNN's f32 dgrad sums a phase's short K (4-9 taps x
+# C_in) at f32-FMA accuracy; measured on an H100 at the shapes below:
+# 0.20-2.03 (above 1 at 10 of 40, the most at a pruned CC_GD's 37 -> 203;
+# WACNN's at most 1.08)
+DECONV_TOL = 2.5
+
+
+def _deconv_lib(x, wt, b):
+    import torch.nn.functional as F
+
+    return F.conv_transpose2d(x, wt, b, stride=2, padding=2, output_padding=1)
+
+
+@pytest.mark.parametrize("batch", [24, 1])
+@pytest.mark.parametrize(
+    "shape", _conv_shapes.routed_transposed()
+    + _conv_shapes.routed_transposed(transposed=True), ids=str)
+def test_deconv_tc_matches_f64_within_cudnn_f32(dev, shape, batch):
+    """The kernel's four phases at every transposed convolution the models
+    route to it (WACNN's synthesis, CC's hyper synthesis, a pruned CC_GD's
+    odd widths; 512x768 and 768x512), at batch 24 and 1: its largest error
+    against an f64 transposed convolution is at most DECONV_TOL x that of
+    cuDNN's f32 one (TF32 off) at the same inputs; one launch a call, in
+    the form `deconv_joint` picks; the packing is its plain version's."""
+    from stf_tpu_torch.utils.numerics import use_numerical_policy
+
+    use_numerical_policy()
+    ci, co, h, w = shape
+    x, wt, b = _deconv_inputs(dev, ci, co, h, w, batch)
+    joint = conv_core.deconv_joint(co)
+    key = conv_core.deconv_launch_key(joint)
+    kernels = [conv_core.joint_kernel(wt)] if joint else conv_core.phase_kernels(wt)
+    plain = torch.cat([conv_core.pack_weight_plain(k, round_small=True).reshape(-1)
+                       for k in kernels])
+    assert torch.equal(conv_core.deconv_pack_weight(wt), plain)
+    before = _native.launch_counts[key]
+    got = conv_core.conv_transpose2d_tc(x, wt, b)
+    torch.cuda.synchronize()
+    assert _native.launch_counts[key] == before + 1
+    err = (got.double() - _deconv_lib(x.double(), wt.double(), b.double())
+           ).abs().max().item()
+    ref = (_deconv_lib(x, wt, b).double()
+           - _deconv_lib(x.double(), wt.double(), b.double())).abs().max().item()
+    print(f"{shape} batch {batch} joint {joint}: kernel {err:.3g}, "
+          f"cuDNN f32 {ref:.3g}")
+    assert err <= DECONV_TOL * ref, (err, ref)
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["phases", "joint"])
+@pytest.mark.parametrize("shape", [(320, 192, 32, 48), (192, 3, 64, 96),
+                                   (61, 37, 8, 12), (29, 5, 19, 23)], ids=str)
+def test_deconv_tc_is_bitwise_batch_and_configuration_invariant(dev, shape,
+                                                                joint):
+    """In either form, an image's outputs at batch 24 equal, bit for bit,
+    its outputs alone and the batch's outputs under every tile
+    configuration; both forms are within 4e-6 of the largest output of
+    the plain decomposition (`conv_transpose2d_tc_plain`)."""
+    from stf_tpu_torch.utils.numerics import use_numerical_policy
+
+    use_numerical_policy()  # the plain version's F.conv2d without TF32
+    ci, co, h, w = shape
+    x, wt, b = _deconv_inputs(dev, ci, co, h, w, 24, seed=1)
+    y = conv_core.conv_transpose2d_tc(x, wt, b, joint=joint)
+    for i in range(x.shape[0]):
+        assert torch.equal(conv_core.conv_transpose2d_tc(
+            x[i:i + 1].clone(), wt, b, joint=joint), y[i:i + 1])
+    for config in range(len(conv_core.CONFIGS)):
+        assert torch.equal(conv_core.conv_transpose2d_tc(
+            x, wt, b, config=config, joint=joint), y)
+    plain = conv_core.conv_transpose2d_tc_plain(x[:2], wt, b, joint=joint)
+    assert ((y[:2] - plain).abs().max().item()
+            <= 4e-6 * plain.abs().max().item())
+
+
+def test_deconv_tc_replays_in_a_graph_as_it_runs_eagerly(dev):
+    """A captured launch, in either form, replayed on new inputs gives the
+    eager launch's bits."""
+    for ci, co in ((192, 192), (192, 3)):
+        x, wt, b = _deconv_inputs(dev, ci, co, 32, 48, 4, seed=2)
+        x2 = torch.randn_like(x)
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            conv_core.conv_transpose2d_tc(static, wt, b)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = conv_core.conv_transpose2d_tc(static, wt, b)
+        for inp in (x, x2):
+            static.copy_(inp)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, conv_core.conv_transpose2d_tc(inp, wt, b))
+
+
+def test_conv_transpose2d_routes_on_the_card(dev):
+    """`ConvTranspose2d` (what `deconv` builds) launches the kernel for an
+    f32 call in inference mode, keeping its weight's packing until the
+    weight changes in place, and within 1e-5 of cuDNN; not under autograd
+    (training), in bf16, at another geometry or with an `output_size`."""
+    from stf_tpu_torch.layers import ConvTranspose2d, deconv
+
+    layer = deconv(16, 8).to(dev)
+    assert type(layer) is ConvTranspose2d
+    x = torch.randn(2, 16, 10, 12, device=dev)
+    keys = [conv_core.deconv_launch_key(j) for j in (False, True)]
+
+    def launched(fn):
+        before = [_native.launch_counts[k] for k in keys]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sum(_native.launch_counts[k] for k in keys) - sum(before)
+
+    with torch.inference_mode():
+        got, n = launched(lambda: layer(x))
+        assert n == 1 and got.shape == (2, 8, 20, 24)
+        packs = _native.launch_counts["conv_tc_pack"]
+        layer(x)
+        assert _native.launch_counts["conv_tc_pack"] == packs
+        assert torch.equal(got, conv_core.conv_transpose2d_tc(
+            x, layer.weight, layer.bias))
+    with torch.no_grad():
+        layer.weight.mul_(2.0)
+    with torch.inference_mode():
+        _, n = launched(lambda: layer(x))
+        assert n == 1 and _native.launch_counts["conv_tc_pack"] > packs
+    with torch.no_grad():
+        layer.weight.mul_(0.5)
+    train, n = launched(lambda: layer(x))
+    assert n == 0 and train.requires_grad
+    assert (train.detach() - got).abs().max().item() <= 1e-5
+    with torch.inference_mode():
+        _, n = launched(lambda: layer(x, output_size=(20, 24)))
+        assert n == 0
+        _, n = launched(lambda: layer.to(torch.bfloat16)(x.bfloat16()))
+        assert n == 0
+        other = ConvTranspose2d(16, 8, 3, stride=2, padding=1,
+                                output_padding=1).to(dev)
+        _, n = launched(lambda: other(x))
+        assert n == 0
+
+
+def test_deconv_tc_rejects_bad_inputs(dev):
+    """Other dtypes, non-contiguous operands, a packing of the other form
+    and unknown configurations raise."""
+    x, wt, b = _deconv_inputs(dev, 8, 16, 10, 12, 2)
+    with pytest.raises(TypeError):
+        conv_core.conv_transpose2d_tc(x.double(), wt.double(), b.double())
+    with pytest.raises(ValueError):
+        conv_core.conv_transpose2d_tc(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError):
+        conv_core.conv_transpose2d_tc(x, wt[:, :, :3, :3], b)
+    with pytest.raises(ValueError):
+        conv_core.conv_transpose2d_tc(
+            x, wt, b, joint=False,
+            packed=conv_core.deconv_pack_weight(wt, joint=True))
+    with pytest.raises(ValueError):
+        conv_core.conv_transpose2d_tc(x, wt, b, config=len(conv_core.CONFIGS))
+
+
+XHAT_GAP_WACNN = 2e-5  # the WACNN cells' `xhat_gap` limit (PERF.md section 2)
+
+
+@pytest.mark.parametrize("batch", [24, 1])
+@pytest.mark.parametrize("name", ["cnn", "cc"])
+def test_round_trip_through_the_deconv_kernel(dev, monkeypatch, name, batch):
+    """The full-width WACNN and CC at 128x192 through the lane codec (the
+    full tier's compress and a replay; another codec's fused and per-slice
+    decompress): the decoder gives the encoder's symbols, so CC's hyper
+    synthesis, whose transposed convolutions run on the kernel on both
+    sides, computed the same bits; its hyper outputs at batch 24 equal
+    each image's alone; the kernel's phases launch in the decompress (and
+    in CC's compress), none of cuDNN's; x_hat is within the WACNN cells'
+    `xhat_gap` limit of a decode whose transposed convolutions take
+    cuDNN (`routes_transposed` off)."""
+    from stf_tpu_torch.models import Codec
+    from stf_tpu_torch.zoo import create_model
+
+    model = create_model(name, seed=0)
+    x = np.concatenate([_pattern(128, 192, k) for k in range(12)])[:batch]
+    enc_codec = Codec(model, coder="lane", device=dev, fused_encode=True)
+    dec_codec = Codec(model, coder="lane", device=dev)
+
+    def deconv_launches(before):
+        return sum(v for k, v in _lane_launches(before).items()
+                   if k.startswith("conv_tc_deconv"))
+
+    enc_codec.compress(x)
+    before = dict(_native.launch_counts)
+    enc = enc_codec.compress(x)
+    enc_launches = deconv_launches(before)
+    before = dict(_native.launch_counts)
+    fused = dec_codec.decompress(enc["strings"], enc["shape"])
+    dec_launches = deconv_launches(before)
+    dec_codec.fused = False
+    walk = dec_codec.decompress(enc["strings"], enc["shape"])
+    for s, f, w in zip(enc["symbols"], fused["symbols"], walk["symbols"]):
+        assert torch.equal(f, s) and torch.equal(w, s)
+    assert torch.equal(fused["x_hat"], walk["x_hat"])
+    # fused decompress: the graph's first call runs the walk eagerly, then
+    # captures it (module docstring), so its launches count twice
+    assert dec_launches > 0 and (enc_launches > 0) == (name == "cc"), (
+        enc_launches, dec_launches)
+    if name == "cc":
+        z_hat = torch.randn(batch, 192, 2, 3, device=dev).round()
+        with torch.inference_mode():
+            lm, ls = model.to(dev).hyper_synthesize(z_hat, (8, 12))
+            for i in range(batch):
+                one = model.hyper_synthesize(z_hat[i:i + 1], (8, 12))
+                assert torch.equal(one[0], lm[i:i + 1])
+                assert torch.equal(one[1], ls[i:i + 1])
+    monkeypatch.setattr(conv_core, "routes_transposed",
+                        lambda *a, **k: False)
+    lib_codec = Codec(model, coder="lane", device=dev)
+    lib_codec.fused = False
+    lib = lib_codec.decompress(enc["strings"], enc["shape"])
+    gap = (lib["x_hat"].float() - walk["x_hat"].float()).abs().max().item()
+    print(f"{name} batch {batch}: deconv launches {enc_launches} / "
+          f"{dec_launches}, x_hat gap to cuDNN {gap:.3g}")
+    assert gap <= XHAT_GAP_WACNN, gap
